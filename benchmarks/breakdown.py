@@ -1,23 +1,21 @@
 #!/usr/bin/env python
-"""Measured phase breakdown of the EnSRF update (VERDICT r2 item 4).
+"""Measured phase breakdown of the EnSRF update.
 
-Splits the update into its phases on the REAL device with the
-chained-iteration + scalar-pull protocol (bench.py), so docs/design.md's
-"measured roofline" section reports where the time actually goes instead
-of back-of-envelope guesses:
+Splits the update into its phases on the device, each chained and closed
+with ``block_until_ready`` after a warm-up call that compiles:
 
-* ``tail``  — phase-1 hierarchical tail solve (``tail_scan_blocked``)
-* ``body``  — phase-2 fused v4 Pallas body sweep (``_fused_impl``)
-* ``total`` — both chained together (what bench.py times)
-* cull accounting — alive fraction of (row-tile, obs-block) pairs and of
-  8-ob panels (the kernel's skip granularity), from the same
-  ``cull_masks`` the kernel prefetches — plus the HBM/MXU roofline
-  numbers those imply.
+* ``tail``  — phase-1 hierarchical tail solve (``tail_scan_blocked``),
+  XLA and Triton kernels;
+* ``body``  — phase-2 body sweep through the Triton kernel
+  (``ops/ensrf_triton.body_update``);
+* ``total`` — both chained together;
+* cull accounting — alive fraction of (row-tile, obs-block) pairs from
+  the same ``cull_masks`` the kernel reads.
 
-Workloads: the bench.py headline (2048 obs x 1.05M rows x 80 mems), the
-true-size pod config (10k x 1e7 x 80), and the large-nobs regime config 8
-flagged in VERDICT r2 (50k obs x 260k rows x 40 mems), with a tail-panel
-sweep there since phase 1 is the nobs-scaling term.
+Workloads: 2048 obs x 1.05M rows x 80 members, the headline size
+(10k x 1e7 x 80), and the large-nobs regime (50k obs x 260k rows x 40
+members), with a tail-panel sweep there since phase 1 is the
+nobs-scaling term.
 
 Usage: python benchmarks/breakdown.py [--workloads headline pod nobs50k]
                                       [--json out.json]
@@ -40,22 +38,17 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)
 
 from efa_xray_tpu.assimilation import ensrf_core as core
 
-# v5e (TPU v5 lite) public specs, used for roofline accounting only.
-HBM_GBPS = 819.0
-F32_TFLOPS = 98.0  # bf16 197 / 2
 
 
-def _chain_time(step, carry, digest, iters=3):
-    carry = step(*carry)
-    _ = float(digest(carry))
-    t0 = time.perf_counter()
-    _ = float(digest(carry))
-    sync = time.perf_counter() - t0
+def _chain_time(step, carry, iters=3):
+    """(seconds per chained call of ``step``, last carry), after one
+    warm-up call that compiles; ``block_until_ready`` closes the window."""
+    carry = jax.block_until_ready(step(*carry))
     t0 = time.perf_counter()
     for _ in range(iters):
         carry = step(*carry)
-    _ = float(digest(carry))
-    return max((time.perf_counter() - t0 - sync) / iters, 1e-9), carry
+    jax.block_until_ready(carry)
+    return max((time.perf_counter() - t0) / iters, 1e-9), carry
 
 
 def _make_workload(nstate, nmems, nobs, radius=2000.0, seed=4):
@@ -94,119 +87,85 @@ def _make_workload(nstate, nmems, nobs, radius=2000.0, seed=4):
     return bm, bp, tm, tp, blat, blon, obs
 
 
-def measure(nstate, nmems, nobs, name, panel=512, block_size=128,
-            tile=16384, iters=3, panels_sweep=()):
-    from efa_xray_tpu.ops.ensrf_pallas_fused import _fused_impl, cull_masks
+def measure(nstate, nmems, nobs, name, panel=64, iters=3, panels_sweep=()):
     from efa_xray_tpu.observation.localization import latlon_to_unit
+    from efa_xray_tpu.ops.ensrf_triton import (
+        BLOCK_OBS, TILE_ROWS, body_update, cull_masks)
 
     bm, bp, tm, tp, blat, blon, obs = _make_workload(nstate, nmems, nobs)
     out = {"workload": name, "nstate": nstate, "nmems": nmems, "nobs": nobs,
-           "panel": panel, "block_size": block_size}
+           "panel": panel, "device": jax.devices()[0].device_kind}
 
     # --- phase 1: tail solve (chained on the tail arrays) ---------------
-    def tail_step_fn(p, pallas=False):
+    def tail_step_fn(p, kernels=False):
         @jax.jit
         def f(tm, tp):
             t = core.tail_scan_blocked(tm, tp, obs, localize=True,
                                        fast_geometry=True, panel=p,
-                                       pallas_apply=pallas)
+                                       kernels=kernels)
             return t.tail_mean, t.tail_perts
         return f
 
-    def timed_tail(key, p, pallas=False):
+    def timed_tail(key, p, kernels=False):
         try:
-            fn = tail_step_fn(p, pallas)
-            t_p, _ = _chain_time(
-                lambda a, b: fn(a, b), (tm, tp),
-                lambda c: jnp.sum(c[0]) + jnp.sum(c[1][:, 0]), iters=iters)
-            out[key] = t_p
+            fn = tail_step_fn(p, kernels)
+            out[key], _ = _chain_time(fn, (tm, tp), iters=iters)
         except Exception as e:  # e.g. runtime OOM of one variant
             out[key] = None
             out[key + "_error"] = repr(e)[:200]
 
     timed_tail("tail_seconds", panel)
-    timed_tail("tail_pallas_seconds", panel, pallas=True)
+    timed_tail("tail_kernel_seconds", panel, kernels=True)
     for p in panels_sweep:
         if p == panel:
             continue
         timed_tail(f"tail_seconds_panel{p}", p)
-        timed_tail(f"tail_pallas_seconds_panel{p}", p, pallas=True)
+        timed_tail(f"tail_kernel_seconds_panel{p}", p, kernels=True)
 
-    # --- phase 2: fused v4 body sweep (fixed tail, chained on the body) -
+    # --- phase 2: body kernel sweep (fixed tail, chained on the body) ---
     t_body = None
     try:
         tail_sol = jax.block_until_ready(core.tail_scan_blocked(
             tm, tp, obs, localize=True, fast_geometry=True, panel=panel,
-            pallas_apply=True))
+            kernels=True))
 
         @functools_partial_jit(donate=(0, 1))
         def body_step(bm, bp):
-            return _fused_impl(bm, bp, blat, blon, tail_sol, obs,
-                               localize=True, block_size=block_size,
-                               tile=tile)
+            return body_update(bm, bp, blat, blon, tail_sol, obs,
+                               localize=True, geometry="chordal")
 
-        t_body, carry = _chain_time(
-            lambda a, b: body_step(a, b), (bm, bp),
-            lambda c: jnp.sum(c[0]) + jnp.sum(c[1][:, 0]), iters=iters)
+        t_body, carry = _chain_time(body_step, (bm, bp), iters=iters)
         out["body_seconds"] = t_body
         del carry
     except Exception as e:
         out["body_seconds"] = None
         out["body_error"] = repr(e)[:200]
 
-    # --- total (tail + body, one jit — what bench.py measures), with the
-    # tail's panel-apply on whichever path survived --------------------------
+    # --- total (tail + body, one jit) -----------------------------------
     try:
         bm, bp, tm2, tp2, blat, blon, obs = _make_workload(
             nstate, nmems, nobs)
-        use_pallas_tail = out.get("tail_seconds") is None or (
-            out.get("tail_pallas_seconds") is not None
-            and out["tail_pallas_seconds"] < (out["tail_seconds"] or 1e9)
-        )
 
         @functools_partial_jit(donate=(0, 1))
         def full_step(bm, bp, tm, tp):
             t = core.tail_scan_blocked(tm, tp, obs, localize=True,
                                        fast_geometry=True, panel=panel,
-                                       pallas_apply=use_pallas_tail)
-            bm2, bp2 = _fused_impl(bm, bp, blat, blon, t, obs,
-                                   localize=True, block_size=block_size,
-                                   tile=tile)
+                                       kernels=True)
+            bm2, bp2 = body_update(bm, bp, blat, blon, t, obs,
+                                   localize=True, geometry="chordal")
             return bm2, bp2, t.tail_mean, t.tail_perts
 
-        t_total, _ = _chain_time(
-            lambda *c: full_step(*c), (bm, bp, tm2, tp2),
-            lambda c: jnp.sum(c[0]) + jnp.sum(c[1][:, 0]), iters=iters)
-        out["total_seconds"] = t_total
-        out["total_uses_pallas_tail"] = bool(use_pallas_tail)
+        out["total_seconds"], _ = _chain_time(
+            full_step, (bm, bp, tm2, tp2), iters=iters)
     except Exception as e:
         out["total_seconds"] = None
         out["total_error"] = repr(e)[:200]
 
-    # --- cull accounting + roofline --------------------------------------
-    eff_tile = max(8, min(-(-tile // 8) * 8, -(-nstate // 8) * 8))
-    nblocks = max(1, -(-nobs // block_size))
-    body_xyz = latlon_to_unit(blat, blon).astype(jnp.float32)
-    ob_xyz = latlon_to_unit(obs.lats, obs.lons).astype(jnp.float32)
-    mask, pmask = cull_masks(body_xyz, ob_xyz, obs.radii, obs.assim,
-                             eff_tile, nblocks, block_size)
-    alive_pairs = float(jnp.mean(mask))
-    alive_panels = float(jnp.mean(pmask))
-    out["cull_alive_pair_fraction"] = alive_pairs
-    out["cull_alive_panel_fraction"] = alive_panels
-
-    state_bytes = nstate * nmems * 4
-    out["body_hbm_bound_seconds"] = 2 * state_bytes / (HBM_GBPS * 1e9)
-    # Dense-equivalent FLOPs of phase 2 (d0 + final update matmuls), then
-    # the panel-culled fraction actually executed.
-    dense_flops = 2 * (2 * nstate * nobs * nmems)
-    out["body_dense_flops"] = dense_flops
-    out["body_executed_flops"] = dense_flops * alive_panels
-    if t_body:
-        out["body_mxu_fraction_of_peak"] = (
-            dense_flops * alive_panels / t_body / (F32_TFLOPS * 1e12)
-        )
-    out["backend"] = jax.default_backend()
+    # --- cull accounting -------------------------------------------------
+    alive = cull_masks(latlon_to_unit(blat, blon).astype(jnp.float32),
+                       latlon_to_unit(obs.lats, obs.lons).astype(jnp.float32),
+                       obs.radii, obs.assim, TILE_ROWS, BLOCK_OBS)
+    out["cull_alive_pair_fraction"] = float(jnp.mean(alive))
     return out
 
 
@@ -223,7 +182,7 @@ WORKLOADS = {
     "headline": dict(nstate=1_048_576, nmems=80, nobs=2048),
     "pod": dict(nstate=10_000_000, nmems=80, nobs=10_000, iters=2),
     "nobs50k": dict(nstate=259_920, nmems=40, nobs=50_000, iters=2,
-                    panels_sweep=(256, 1024, 2048)),
+                    panels_sweep=(128, 256, 512)),
 }
 
 

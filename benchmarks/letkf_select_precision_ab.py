@@ -1,13 +1,12 @@
 #!/usr/bin/env python
-"""On-chip A/B of the LETKF nearest-k selection's matmul precision.
+"""A/B of the LETKF nearest-k selection's matmul precision on a device.
 
 The selection ranks observations by chordal dot products from one
-``[P, 3] x [3, No]`` einsum.  A default-precision f32 matmul ingests
-bf16 on the TPU MXU (measured: benchmarks/precision_probe.py), and bf16
-quantization of chord dots near 1.0 is ~sqrt(2*2^-8) rad ~ 560 km of
-ranking resolution — so the "exact" nearest-k selection was silently
-choosing obs sets mis-ranked by hundreds of km.  This script measures,
-on the real chip at a config-6-shaped workload:
+``[P, 3] x [3, No]`` einsum.  A default-precision f32 matmul may round
+its inputs (TF32 on a GPU: ~sqrt(2*2^-11) rad ~ 200 km of ranking
+resolution for chord dots near 1.0), so an "exact" nearest-k selection
+at the default would choose obs sets mis-ranked by hundreds of km.  This
+script measures, at a config-6-shaped workload:
 
 * the fraction of patches whose DEFAULT-precision top-k set differs
   from the HIGHEST-precision one, and both against a float64 host
@@ -15,7 +14,7 @@ on the real chip at a config-6-shaped workload:
 * the cost of the fix: dots + top_k timing at both precisions (the K=3
   contraction is expected to be noise next to the top_k).
 
-Run (real TPU):  python benchmarks/letkf_select_precision_ab.py [--json OUT]
+Run:  python benchmarks/letkf_select_precision_ab.py [--json OUT]
 """
 
 import argparse
@@ -103,14 +102,9 @@ def main():
         sel[name] = idx
         diff = sum(frozenset(r) != s for r, s in zip(idx, oracle_sets))
         out[f"{name}_vs_f64_set_diff_frac"] = diff / npatch
-        # timing: chained iterations + scalar pull
-        digest = jax.jit(lambda p, o, prec=prec: jnp.sum(
-            _selection(p, o, args.k, prec)))
-        float(digest(pxyz, oxyz))  # warm
         t0 = time.perf_counter()
-        acc = 0.0
         for _ in range(args.iters):
-            acc += float(digest(pxyz, oxyz))
+            jax.block_until_ready(fn(pxyz, oxyz))
         out[f"{name}_seconds"] = (time.perf_counter() - t0) / args.iters
     out["default_vs_highest_set_diff_frac"] = (
         sum(frozenset(a) != frozenset(b)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Scaled virtual-mesh run of the pod-shaped workload (VERDICT r2 item 1).
+"""Scaled virtual-mesh run of the pod-shaped workload.
 
-The real pod measurement (config 10, 1e7 rows on one v5e chip) shows the
-single-chip number; this run demonstrates the SAME sharded code path
-executing a scaled pod-shaped workload across an 8-device mesh — on the
-8-virtual-CPU-device configuration the test suite uses, since only one
-physical TPU chip is reachable in this environment.  It records:
+Config 10 measures the single-card number; this run exercises the SAME
+sharded code path on a scaled pod-shaped workload across an 8-device
+mesh — the 8-virtual-CPU-device configuration the test suite uses (the
+four-card run on real GPUs is ``python chip_smoke.py --four-cards``).
+It records:
 
 * wall time on a 1-device mesh vs an 8-device mesh (NOT a speedup claim:
   the 8 virtual devices share one physical core — the point is that the
@@ -96,7 +96,7 @@ def main(nstate=1_048_576, nmems=80, nobs=2048, block_size=128, seed=7):
             "scaled pod-shaped workload through ensrf_update_sharded on the "
             "8-virtual-CPU-device mesh (one physical core: times show the "
             "sharded program executes at scale, not a speedup); posterior "
-            "parity 1-vs-8 devices at f32. The real-chip pod number is "
+            "parity 1-vs-8 devices at f32. The single-card number is "
             "config 10-pod-full-1e7."
         ),
     }

@@ -1,11 +1,9 @@
 #!/usr/bin/env python
 """Public-API EnSRF at satellite-density batch sizes with auto chunking.
 
-The one-shot fused path crashed the TPU worker at exactly 200k obs
-(config 12; shape-specific Mosaic fault — 100k and 500k ran), so
-FilterConfig.obs_chunk=None now auto-chunks >131072-ob batches into
+FilterConfig.obs_chunk=None auto-chunks >131072-ob batches into
 65536-ob chunks (one compile for ANY batch size).  This measures the
-chunked public path at the crash size and above, end to end:
+chunked public path at 200k obs and above, end to end:
 EnsembleState + ObservationBatch + EnSRF.update().
 
 Usage: python benchmarks/obscap_chunked.py [--nobs-list 200000 500000]
@@ -76,11 +74,10 @@ def main():
         # Spatial-locality obs order (the caller's choice in a serial
         # filter): config 12's one-shot capacity table Hilbert-sorts both
         # rows and obs, and the kernels' localization culling only
-        # engages on spatially compact obs panels — random order measured
-        # 2x slower at 500k (r4/r5 unsorted points).
+        # engages on spatially compact obs blocks.
         batch, _ = batch.spatial_sort()
         cfg = FilterConfig(localization="GC", dtype="float32",
-                           fast_geometry=True, pallas_tile=8192)
+                           fast_geometry=True)
         pt = {"nobs": nobs, "obs_chunk": "auto(65536)", "obs_order": "hilbert"}
         try:
             def one():

@@ -2,16 +2,15 @@
 """Cold forward-operator build A/B: separable-grid host search vs device.
 
 The module-level taps cache amortizes rebuilds across cycles, but the COLD
-``build_taps`` on a fresh observation network was the dominant end-to-end
-cost at config-5 scale (0.117-0.162 s vs 0.14 s for the whole analysis —
-``results_v5e_r3.json``), and that cost is the full-grid nearest-point
+``build_taps`` on a fresh observation network can dominate the end-to-end
+cost at config-5 scale, and that cost is the full-grid nearest-point
 ``top_k`` on device.  ``taps_search="auto"`` resolves separable lat x lon
 product grids (configs 2/3/5 and every regular real-data grid) with exact
 host-side index arithmetic instead: this script measures both paths cold
 at config-5 scale (260k-point global 0.5 deg grid, 2000 obs) and at
 config-3 obs count (5000 obs), and checks the taps agree.
 
-Run on the real TPU:  python benchmarks/taps_search_ab.py [--json out]
+Run:  python benchmarks/taps_search_ab.py [--json out]
 """
 
 from __future__ import annotations

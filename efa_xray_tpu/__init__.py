@@ -1,8 +1,8 @@
-"""efa_xray_tpu — a TPU-native ensemble square-root filter (EnSRF) framework.
+"""efa_xray_tpu — a JAX ensemble square-root filter (EnSRF) framework.
 
 A brand-new JAX/XLA implementation of Ensemble Forecast Adjustment (EFA;
 Madaus & Hakim 2015) with the full capability surface of the reference
-``lmadaus/efa_xray`` package, re-designed TPU-first:
+``lmadaus/efa_xray`` package, re-designed for accelerators:
 
 * the ensemble state is a dense device array ``[vars, times, y, x, members]``
   with static host-side metadata (``StateStructure``) instead of an
@@ -10,7 +10,7 @@ Madaus & Hakim 2015) with the full capability surface of the reference
 * the serial per-observation Python loop (reference:
   ``efa_xray/assimilation/ensrf.py:50-149``) becomes a ``lax.scan`` and a
   mathematically-equivalent *blocked* two-phase algorithm whose hot ops are
-  MXU matmuls;
+  matrix products (on a GPU, one fused Triton kernel);
 * forward operators (reference: ``efa_xray/state/ensemble.py:170-239``)
   become precomputed gather indices + weights applied in one vectorized shot;
 * multi-chip runs shard the state axis over a ``jax.sharding.Mesh`` with the

@@ -16,7 +16,7 @@ exchange for exactly Gaussian-consistent higher moments (the square-root
 filter's deterministic update can produce non-Gaussian outliers in small
 ensembles).
 
-TPU shape: the default blocked two-phase form mirrors the EnSRF
+Execution: the default blocked two-phase form mirrors the EnSRF
 (``method="blocked"``: obs-space tail scan + Gram-corrected block sweep of
 the body, :func:`enkf_blocked`) — the same one-HBM-pass-per-block
 structure, with the apply rows being the perturbed departures ``z`` and

@@ -6,12 +6,14 @@ EnsembleState, observations, inflation and localization options; call
 ``.update()`` to get ``(posterior_state, observations)`` with per-ob
 diagnostics recorded.
 
-Execution is TPU-native: the per-observation Python loop becomes either a
-``lax.scan`` (``method="serial"``) or the exact blocked two-phase algorithm
+The per-observation Python loop becomes either a ``lax.scan``
+(``method="serial"``) or the exact blocked two-phase algorithm
 (``method="blocked"``, default — see
 :mod:`efa_xray_tpu.assimilation.ensrf_core`), optionally sharded over a
 ``jax.sharding.Mesh`` along the state dimension
-(:mod:`efa_xray_tpu.parallel.sharded`).
+(:mod:`efa_xray_tpu.parallel.sharded`).  Which implementation runs each
+phase (XLA or the Triton kernels) is decided in one place,
+:func:`efa_xray_tpu.ops.select.choose`.
 """
 
 from __future__ import annotations
@@ -67,85 +69,14 @@ class EnSRF(Assimilation):
         )
         self.loc = loc if loc not in (None, False) else (config.localization or False)
 
-    def _grid_kernel_ok(self) -> bool:
-        """Eligibility of the v4-GRID kernel (rows tile one spatial grid
-        over vt > 1 groups, chordal localization, no hybrid)."""
-        cfg = self.config
-        st = self.prior.structure
-        vt = st.nvars * st.ntimes
-        return (
-            cfg.localize
-            and cfg.fast_geometry
-            and vt > 1
-            and st.ngrid > 0
-            and st.nstate == vt * st.ngrid
-            and cfg.hybrid_alpha >= 1.0
-        )
+    # Run the Triton kernels in the Pallas interpreter.  Only tests set
+    # this (there is no GPU to compile them for on a CPU host).
+    interpret: bool = False
 
-    def _use_pallas(self) -> bool:
-        """Auto-select the fused Pallas kernel: TPU backend + blocked method
-        + float32 (the kernel is written for the MXU's f32 path).  Hybrid
-        covariance is implemented in the FLAT v4 kernel (the static column
-        rides the in-kernel recurrence; chordal geometry required), so a
-        hybrid run keeps the fused path whenever geometry is chordal;
-        exact-haversine hybrid runs use the blocked XLA body."""
-        import jax
+    def _kernels(self):
+        from efa_xray_tpu.ops import select
 
-        cfg = self.config
-        if self._fastpath:
-            return False  # host CPU: Mosaic kernels unavailable
-        if cfg.use_pallas is not None:
-            ok = bool(cfg.use_pallas)
-        else:
-            ok = (
-                jax.default_backend() == "tpu"
-                and cfg.method == "blocked"
-                and jnp.dtype(cfg.dtype) == jnp.float32
-            )
-        if cfg.hybrid_alpha < 1.0:
-            ok = ok and (cfg.fast_geometry or not cfg.localize)
-        if cfg.variable_localization:
-            # The flat kernels have no cross-variable factor input, but
-            # the v4-GRID kernel streams the factor through the same
-            # per-(group, ob) scalar table as vertical localization —
-            # gridded states keep the fused path.
-            ok = ok and self._grid_kernel_ok()
-        return ok
-
-    def _tile(self, grid: bool = False, nrows: int = 0, nmems: int = 0) -> int:
-        """Resolved Pallas row-tile: explicit config wins; otherwise the
-        workload-aware defaults in :mod:`efa_xray_tpu.ops.tiling` (8192
-        for the flat v4 kernel, raised for >16.7M-row states; VMEM-capped
-        whole-grid for the grid-mode kernels)."""
-        from efa_xray_tpu.ops import tiling
-
-        cfg = self.config
-        if cfg.pallas_tile is not None:
-            return int(cfg.pallas_tile)
-        if grid:
-            return tiling.auto_grid_tile(cfg.block_size, nmems)
-        return tiling.auto_flat_tile(nrows)
-
-    def _tail_pallas(self, interpret: bool) -> bool:
-        """Pallas tail selection: explicit config wins; auto is on for all
-        real-TPU chordal-geometry runs at ANY batch size (v5e, panel 512:
-        2048 obs ~0 vs 14 ms XLA; 5k obs 13.9 vs 51 ms; 10k obs 11.4 vs
-        154 ms; 50k obs 0.14 vs 1.79 s) — the old >=8k-obs crossover
-        belonged to the apply-only Pallas tail whose solve was still the
-        XLA scan.  ``tail_panel`` does not gate this: panels over the
-        in-kernel solver's 1024 bound automatically keep the XLA panel
-        solve and the Pallas apply (see ``tail_scan_blocked``)."""
-        cfg = self.config
-        if self._fastpath:
-            return False  # host CPU: Mosaic kernels unavailable
-        if cfg.tail_pallas is not None:
-            return bool(cfg.tail_pallas)
-        return (
-            not interpret
-            and cfg.hybrid_alpha >= 1.0
-            and not cfg.variable_localization
-            and (cfg.fast_geometry or not cfg.localize)
-        )
+        return select.choose(self.config, interpret=self.interpret)
 
     def _hybrid_kwargs(self, body_mean, dtype):
         """Static-B inputs for ``hybrid_alpha < 1``: per-row sigma and its
@@ -174,10 +105,9 @@ class EnSRF(Assimilation):
         """Assimilate all observations; return (posterior, observations).
 
         Reference flow parity: ``efa_xray/assimilation/ensrf.py:33-151``.
-        Tiny workloads route to the host CPU backend
-        (:meth:`Assimilation._host_fastpath`): same algorithm, same
-        results up to backend fp differences, none of the remote-dispatch
-        floor.
+        ``FilterConfig.small_host`` routes the update to the host CPU
+        backend (:meth:`Assimilation._host_fastpath`): same algorithm,
+        same results up to backend fp differences.
         """
         if self._host_fastpath():
             with self._host_fastpath_ctx():
@@ -215,9 +145,9 @@ class EnSRF(Assimilation):
         prior_perts_saved = None
         if cfg.rtpp_alpha > 0.0:
             # RTPP blends member-wise with the prior perturbations, so they
-            # must survive the update; the mesh and fused-Pallas paths
+            # must survive the update; the mesh and body-kernel paths
             # donate the prior buffers, so keep an explicit copy there.
-            donating = self.mesh is not None or self._use_pallas()
+            donating = self.mesh is not None or self._kernels().body
             prior_perts_saved = (
                 jnp.array(body_perts, copy=True) if donating else body_perts
             )
@@ -226,13 +156,12 @@ class EnSRF(Assimilation):
         vl_kwargs = self.varloc_kwargs(dtype)
         obs_chunk = cfg.obs_chunk
         if obs_chunk is None:
-            # Auto: chunk huge batches on TPU (see FilterConfig.obs_chunk)
-            # unless an incompatible option forces one-shot.
+            # Auto: chunk huge batches (see FilterConfig.obs_chunk) unless
+            # an incompatible option forces one-shot.
             obs_chunk = (
                 65536
                 if (
-                    jax.default_backend() == "tpu"
-                    and int(obs.values.shape[0]) > 131072
+                    int(obs.values.shape[0]) > 131072
                     and not hybrid_kwargs
                     and not vl_kwargs
                 )
@@ -256,10 +185,9 @@ class EnSRF(Assimilation):
             )
         elif self.mesh is not None:
             # The sharded driver has no chunked mode: a huge batch runs
-            # the giant one-shot shapes the single-device chunker exists
-            # to avoid (200k-ob one-shot crashed the TPU worker in the r4
-            # capacity sweep).  Refuse loudly rather than run the fragile
-            # shape silently; obs_chunk=0 is the explicit opt-in.
+            # one-shot shapes beyond the envelope the single-device
+            # driver chunks at.  Refuse loudly rather than run them
+            # silently; obs_chunk=0 is the explicit opt-in.
             nobs_mesh = int(obs.values.shape[0])
             if cfg.obs_chunk is not None and cfg.obs_chunk > 0:
                 raise ValueError(
@@ -271,9 +199,8 @@ class EnSRF(Assimilation):
             if cfg.obs_chunk is None and nobs_mesh > 131072:
                 raise ValueError(
                     f"{nobs_mesh} obs in one sharded update exceeds the "
-                    "131072-ob one-shot envelope validated on hardware "
-                    "(the r4 capacity sweep crashed a TPU worker at 200k "
-                    "one-shot). Split the batch into sequential "
+                    "131072-ob one-shot envelope (the single-device "
+                    "driver chunks beyond it). Split the batch into sequential "
                     "EnSRF.update() calls of <= 131072 obs (exact: the "
                     "serial filter composes), or pass obs_chunk=0 to "
                     "force the one-shot shapes anyway."
@@ -292,22 +219,14 @@ class EnSRF(Assimilation):
                 localize=cfg.localize,
                 method=cfg.method,
                 block_size=cfg.block_size,
-                # Per-shard rows are what the flat kernel's Mosaic grid sees.
-                tile=self._tile(
-                    nrows=-(-int(body_mean.shape[0])
-                            // max(1, int(self.mesh.devices.size))),
-                    nmems=int(body_perts.shape[1]),
-                ),
                 unbiased=cfg.unbiased_variance,
                 fast_geometry=cfg.fast_geometry,
                 body_vert=body_vert,
                 vertical=vertical,
-                use_pallas=self._use_pallas(),
-                interpret=__import__("jax").default_backend() != "tpu",
+                kernels=self._kernels(),
                 tail_panel=cfg.tail_panel,
                 cull=cfg.cull,
                 spatial_sort=cfg.spatial_sort,
-                mxu_bf16=cfg.mxu_bf16,
                 # EnSRF owns the formatted prior: let the posterior shards
                 # reuse its HBM.
                 donate=True,
@@ -370,154 +289,26 @@ class EnSRF(Assimilation):
                 **hybrid_kwargs,
                 **vl_kwargs,
             )
-        if self._use_pallas():
-            from efa_xray_tpu.ops.ensrf_pallas import ensrf_blocked_body_pallas
-            from efa_xray_tpu.ops.ensrf_pallas_fused import (
-                ensrf_blocked_body_pallas_fused_donating,
-                ensrf_blocked_body_pallas_fused_grid_donating,
-            )
-            import jax
-
-            interpret = jax.default_backend() != "tpu"
-            tail_hkw = {
-                k: v for k, v in hybrid_kwargs.items() if k != "body_sigma"
-            }
-            tail_vkw = (
-                {"varloc": vl_kwargs["varloc"], "ob_var": vl_kwargs["ob_var"]}
-                if vl_kwargs else {}
-            )
-            tail = core.tail_scan_blocked(
-                tail_mean,
-                tail_perts,
-                obs,
-                localize=cfg.localize,
-                unbiased=cfg.unbiased_variance,
-                fast_geometry=cfg.fast_geometry,
-                vertical=vertical,
-                panel=cfg.tail_panel,
-                pallas_apply=self._tail_pallas(interpret),
-                interpret=interpret,
-                pallas_tile=self._tile(),
-                max_radius_km=self.max_finite_radius(),
-                **tail_hkw,
-                **tail_vkw,
-            )
-            st = self.prior.structure
-            vt = st.nvars * st.ntimes
-            nrows = int(body_mean.shape[0])
-            if self._grid_kernel_ok() and nrows == vt * st.ngrid:
-                # Gridded state: v4-grid — same one-HBM-pass loop nest,
-                # horizontal weights computed ONCE per grid point by XLA
-                # and streamed in (removes the vt-fold trig redundancy;
-                # measured 0.29 s -> see PARITY.md config 3), vertical
-                # localization — and the cross-variable localization
-                # factor — as a per-(group, ob) scalar table.
-                group_factor = None
-                if vl_kwargs:
-                    varg = jnp.arange(vt, dtype=jnp.int32) // st.ntimes
-                    group_factor = (
-                        vl_kwargs["varloc"][vl_kwargs["ob_var"]][:, varg].T
-                    )
-                bm, bp = ensrf_blocked_body_pallas_fused_grid_donating(
-                    body_mean,
-                    body_perts,
-                    body_lat,
-                    body_lon,
-                    tail,
-                    obs,
-                    body_vert=body_vert if vertical else None,
-                    localize=cfg.localize,
-                    block_size=cfg.block_size,
-                    tile=self._tile(grid=True, nmems=int(body_perts.shape[1])),
-                    interpret=interpret,
-                    vertical=vertical,
-                    ngrid=st.ngrid,
-                    mxu_bf16=cfg.mxu_bf16,
-                    group_factor=group_factor,
-                )
-            elif cfg.fast_geometry or not cfg.localize:
-                # varloc reaches the Pallas branch only via the grid
-                # kernel (_use_pallas); the flat kernels have no factor
-                # input and must never be selected with it.
-                assert not vl_kwargs
-                # Geometry-only row permutation for the kernel's cull:
-                # computed once per structure, two gathers per update.
-                row_order = inv_order = None
-                if cfg.spatial_sort:
-                    row_order, inv_order = st.spatial_order_device()
-                # The fully-fused v4 kernel (state crosses HBM once;
-                # per-row chordal weights — and, when active, vertical GC
-                # factors — computed in-kernel).  Per-row weights are exact
-                # for flat AND gridded (vt > 1) states; v4's geometry is
-                # inherently chordal, so it is only selected when
-                # cfg.fast_geometry allows it (exact-haversine runs fall
-                # through to the grid-mode v3 below).  The donating variant
-                # halves peak HBM — EnSRF owns these buffers and never
-                # touches them again (validated at 4M x 80 rows x 10k obs
-                # on a 16 GB v5e; the non-donating form OOMs there).
-                bm, bp = ensrf_blocked_body_pallas_fused_donating(
-                    body_mean,
-                    body_perts,
-                    body_lat,
-                    body_lon,
-                    tail,
-                    obs,
-                    body_vert=body_vert if vertical else None,
-                    localize=cfg.localize,
-                    block_size=cfg.block_size,
-                    tile=self._tile(nrows=nrows,
-                                    nmems=int(body_perts.shape[1])),
-                    interpret=interpret,
-                    vertical=vertical,
-                    cull=cfg.cull,
-                    spatial_sort=cfg.spatial_sort,
-                    row_order=row_order,
-                    inv_order=inv_order,
-                    hybrid=bool(hybrid_kwargs),
-                    body_sigma=hybrid_kwargs.get("body_sigma"),
-                    static_length=hybrid_kwargs.get("static_length"),
-                    mxu_bf16=cfg.mxu_bf16,
-                    max_radius_km=self.max_finite_radius(),
-                )
-            else:
-                assert not vl_kwargs  # see the flat-kernel guard above
-                bm, bp = ensrf_blocked_body_pallas(
-                    body_mean,
-                    body_perts,
-                    body_lat,
-                    body_lon,
-                    tail,
-                    obs,
-                    localize=cfg.localize,
-                    block_size=cfg.block_size,
-                    tile=self._tile(grid=True, nmems=int(body_perts.shape[1])),
-                    fast_geometry=cfg.fast_geometry,
-                    body_vert=body_vert,
-                    vertical=vertical,
-                    # Grid-mode weights: rows tile one spatial grid over
-                    # nvars*ntimes groups (row_latlon ordering), so
-                    # horizontal GC weights are computed once per grid point.
-                    ngrid=st.ngrid,
-                    interpret=interpret,
-                )
-            return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
-        return core.ensrf_blocked(
-            body_mean,
-            body_perts,
+        k = self._kernels()
+        tail = core.tail_scan_blocked(
             tail_mean,
             tail_perts,
-            body_lat,
-            body_lon,
             obs,
             localize=cfg.localize,
-            block_size=cfg.block_size,
             unbiased=cfg.unbiased_variance,
             fast_geometry=cfg.fast_geometry,
-            body_vert=body_vert,
             vertical=vertical,
-            **hybrid_kwargs,
-            **vl_kwargs,
+            panel=cfg.tail_panel,
+            kernels=k.tail,
+            interpret=k.interpret,
+            **{n: v for n, v in hybrid_kwargs.items() if n != "body_sigma"},
+            **{n: v for n, v in vl_kwargs.items() if n != "row_var"},
         )
+        bm, bp = self._body_apply(
+            body_mean, body_perts, body_lat, body_lon, tail, obs,
+            body_vert, vertical, hybrid_kwargs, vl_kwargs,
+        )
+        return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
 
     def _solve_obs_chunked(
         self,
@@ -544,16 +335,7 @@ class EnSRF(Assimilation):
         a per-ob sequence of row-local ops on precomputed tail
         quantities, so partitioning it at chunk boundaries only
         reassociates fp — the serial filter's augmented-state invariant
-        (``efa_xray/assimilation/assimilation.py:146-150``).
-
-        Replaces the r4 augmented-chunk design, which appended ALL No obs
-        rows to the state body every chunk — (ns+No)·No body work vs the
-        one-shot's ns·No.  This design does the one-shot work while
-        keeping the giant one-shot BODY shape (which crashed the TPU
-        worker at 200k obs in the r4 capacity sweep) out of the program:
-        measured at the 500k-ob capacity point (260k x 40, Hilbert-sorted
-        obs) 8.35 s vs the fragile one-shot's 8.08 s, where the r4
-        augmented design took 16.7 s."""
+        (``efa_xray/assimilation/assimilation.py:146-150``)."""
         cfg = self.config
         nobs = int(obs.values.shape[0])
         nchunks = -(-nobs // chunk)
@@ -578,37 +360,24 @@ class EnSRF(Assimilation):
         tm_p = jnp.pad(tail_mean.astype(dtype), (0, pad))
         tp_p = jnp.pad(tail_perts.astype(dtype), ((0, pad), (0, 0)))
 
-        interpret = jax.default_backend() != "tpu"
-        if self._use_pallas():
-            tail = core.tail_scan_blocked(
-                tm_p, tp_p, obs_p,
-                localize=cfg.localize,
-                unbiased=cfg.unbiased_variance,
-                fast_geometry=cfg.fast_geometry,
-                vertical=vertical,
-                panel=cfg.tail_panel,
-                pallas_apply=self._tail_pallas(interpret),
-                interpret=interpret,
-                pallas_tile=self._tile(),
-                max_radius_km=self.max_finite_radius(),
-            )
-        else:
-            # Mirror the one-shot XLA path's phase 1 (plain per-ob scan;
-            # method="serial" parity rides the blocked==serial identity).
-            tail = core.tail_scan(
-                tm_p, tp_p, obs_p,
-                localize=cfg.localize,
-                unbiased=cfg.unbiased_variance,
-                fast_geometry=cfg.fast_geometry,
-                vertical=vertical,
-            )
+        k = self._kernels()
+        tail = core.tail_scan_blocked(
+            tm_p, tp_p, obs_p,
+            localize=cfg.localize,
+            unbiased=cfg.unbiased_variance,
+            fast_geometry=cfg.fast_geometry,
+            vertical=vertical,
+            panel=cfg.tail_panel,
+            kernels=k.tail,
+            interpret=k.interpret,
+        )
 
         bm, bp = body_mean, body_perts
         for i in range(nchunks):
             tail_i, obs_i = _slice_chunk(tail, obs_p, i * chunk, chunk)
             bm, bp = self._body_apply(
                 bm, bp, body_lat, body_lon, tail_i, obs_i,
-                body_vert, vertical, interpret,
+                body_vert, vertical, {}, {},
             )
 
         cut = lambda a: a[:nobs]
@@ -616,68 +385,38 @@ class EnSRF(Assimilation):
                 jax.tree.map(cut, tail.diags))
 
     def _body_apply(self, bm, bp, body_lat, body_lon, tail, obs,
-                    body_vert, vertical: bool, interpret: bool):
-        """Phase 2 for the chunked driver: apply a pre-solved observation
-        sequence (TailSolution) to the state body through the configured
-        kernel path.  Pure-ensemble / no variable localization (the
-        chunked driver's precondition); kernel selection mirrors
-        :meth:`_solve_once`'s phase-2 branches."""
+                    body_vert, vertical: bool, hybrid_kwargs: dict,
+                    vl_kwargs: dict):
+        """Phase 2: apply a pre-solved observation sequence
+        (TailSolution) to the state body through the selected kernel
+        family."""
         cfg = self.config
-        st = self.prior.structure
-        nrows = int(bm.shape[0])
-        if self._use_pallas():
-            from efa_xray_tpu.ops.ensrf_pallas import (
-                ensrf_blocked_body_pallas,
-            )
-            from efa_xray_tpu.ops.ensrf_pallas_fused import (
-                ensrf_blocked_body_pallas_fused_donating,
-                ensrf_blocked_body_pallas_fused_grid_donating,
-            )
+        k = self._kernels()
+        hybrid = bool(hybrid_kwargs)
+        if k.body:
+            from efa_xray_tpu.ops.ensrf_triton import body_update_donating
 
-            vt = st.nvars * st.ntimes
-            if self._grid_kernel_ok() and nrows == vt * st.ngrid:
-                return ensrf_blocked_body_pallas_fused_grid_donating(
-                    bm, bp, body_lat, body_lon, tail, obs,
-                    body_vert=body_vert if vertical else None,
-                    localize=cfg.localize,
-                    block_size=cfg.block_size,
-                    tile=self._tile(grid=True, nmems=int(bp.shape[1])),
-                    interpret=interpret,
-                    vertical=vertical,
-                    ngrid=st.ngrid,
-                    mxu_bf16=cfg.mxu_bf16,
-                    group_factor=None,
-                )
-            if cfg.fast_geometry or not cfg.localize:
-                row_order = inv_order = None
-                if cfg.spatial_sort:
-                    row_order, inv_order = st.spatial_order_device()
-                return ensrf_blocked_body_pallas_fused_donating(
-                    bm, bp, body_lat, body_lon, tail, obs,
-                    body_vert=body_vert if vertical else None,
-                    localize=cfg.localize,
-                    block_size=cfg.block_size,
-                    tile=self._tile(nrows=nrows, nmems=int(bp.shape[1])),
-                    interpret=interpret,
-                    vertical=vertical,
-                    cull=cfg.cull,
-                    spatial_sort=cfg.spatial_sort,
-                    row_order=row_order,
-                    inv_order=inv_order,
-                    hybrid=False,
-                    mxu_bf16=cfg.mxu_bf16,
-                    max_radius_km=self.max_finite_radius(),
-                )
-            return ensrf_blocked_body_pallas(
+            row_order = inv_order = None
+            if cfg.spatial_sort:
+                row_order, inv_order = (
+                    self.prior.structure.spatial_order_device())
+            # Donating: EnSRF owns the formatted prior and never touches
+            # it again, so the kernel updates the state in place.
+            return body_update_donating(
                 bm, bp, body_lat, body_lon, tail, obs,
                 localize=cfg.localize,
-                block_size=cfg.block_size,
-                tile=self._tile(grid=True, nmems=int(bp.shape[1])),
-                fast_geometry=cfg.fast_geometry,
-                body_vert=body_vert,
+                geometry="chordal" if cfg.fast_geometry else "haversine",
+                body_vert=body_vert if vertical else None,
                 vertical=vertical,
-                ngrid=st.ngrid,
-                interpret=interpret,
+                cull=cfg.cull,
+                spatial_sort=cfg.spatial_sort,
+                row_order=row_order,
+                inv_order=inv_order,
+                hybrid=hybrid,
+                body_sigma=hybrid_kwargs.get("body_sigma"),
+                static_length=hybrid_kwargs.get("static_length"),
+                interpret=k.interpret,
+                **vl_kwargs,
             )
         return core.ensrf_blocked_body(
             bm, bp, body_lat, body_lon, tail, obs,
@@ -686,4 +425,8 @@ class EnSRF(Assimilation):
             fast_geometry=cfg.fast_geometry,
             body_vert=body_vert,
             vertical=vertical,
+            hybrid=hybrid,
+            body_sigma=hybrid_kwargs.get("body_sigma"),
+            static_length=hybrid_kwargs.get("static_length"),
+            **vl_kwargs,
         )

@@ -16,7 +16,7 @@ per-observation update sequence (``efa_xray/assimilation/ensrf.py:50-149``):
     beta    = 1 / (1 + sqrt(R_i / kdenom))
     Xbp    -= (beta * K) outer ye
 
-Two equivalent TPU execution strategies are provided:
+Two equivalent execution strategies are provided:
 
 1. :func:`ensrf_serial` — a direct ``lax.scan`` over observations.  One
    fused XLA step per ob; HBM-bound (state read+written once per ob).
@@ -33,8 +33,9 @@ Two equivalent TPU execution strategies are provided:
      state body in blocks of B.  Within a block the sequential rank-1
      updates compose through a small triangular recurrence on the
      ``[rows, B]`` inner-product matrix, so the state is touched by TWO
-     MXU matmuls per block instead of 2B rank-1 passes — HBM traffic drops
-     by the block factor and the FLOPs move onto the systolic array.
+     matrix products per block instead of 2B rank-1 passes — memory
+     traffic drops by the block factor and the FLOPs move onto the matrix
+     units.
 
    (The re-association is in the same family as iterative Sherman-Morrison
    formulations of the EnKF — cf. Nino-Ruiz, Sandu & Anderson's iterative
@@ -52,7 +53,7 @@ Two equivalent TPU execution strategies are provided:
 
 Both strategies are row-parallel in the state dimension: under
 ``shard_map`` each device runs them on its shard with the tail replicated
-and **zero per-observation collectives** — the TPU-native realization of the
+and **zero per-observation collectives** — the working realization of the
 reference's (broken) chunked-multiprocessing design
 (``efa_xray/assimilation/assimilation.py:176-230``).
 """
@@ -547,30 +548,50 @@ def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
     )
 
 
-def _panel_solve_pallas(tm, tp, pob: ObsArrays, pxyz, localize: bool,
-                        unbiased: bool, vertical: bool, interpret: bool,
-                        dtype) -> TailSolution:
-    """Serial solve of one obs panel via the single-dispatch Pallas kernel
-    (:mod:`efa_xray_tpu.ops.tail_solve_pallas`), wrapped as a
-    :class:`TailSolution`.  The ob-ob weight matrix (chordal GC x optional
-    vertical GC — an elementwise-heavy ``O(P^2)`` chain) is built here in
-    XLA and streamed into the kernel."""
-    from efa_xray_tpu.ops.tail_solve_pallas import tail_panel_solve_pallas
-
-    if localize:
-        wmat = chordal_gc_weights(
-            pxyz[None, :, :], pxyz[:, None, :], pob.radii[:, None]
-        ).astype(dtype)
-        if vertical:
-            wmat = wmat * gaspari_cohn(
-                jnp.abs(pob.verts[:, None] - pob.verts[None, :]),
-                pob.vert_radii[:, None],
-            ).astype(dtype)
+def _panel_weights(pob: ObsArrays, localize: bool, fast_geometry: bool,
+                   vertical: bool, dtype, varloc=None, ob_var=None):
+    """``[P, P]`` gain factors of each panel ob (row) toward each panel
+    ob's tail row (column): GC on the configured geometry, times the
+    vertical and cross-variable factors when active (ones when
+    unlocalized)."""
+    p = pob.values.shape[0]
+    if not localize:
+        w = jnp.ones((p, p), dtype=dtype)
+    elif fast_geometry:
+        xyz = latlon_to_unit(pob.lats, pob.lons)
+        w = chordal_gc_weights(xyz[None, :, :], xyz[:, None, :],
+                               pob.radii[:, None]).astype(dtype)
     else:
-        wmat = None
-    ptm, ptp, pye, pg, psq, ppm, ppv, pom, pov = tail_panel_solve_pallas(
+        w = gaspari_cohn(
+            haversine((pob.lats[None, :], pob.lons[None, :]),
+                      (pob.lats[:, None], pob.lons[:, None])),
+            pob.radii[:, None],
+        ).astype(dtype)
+    if localize and vertical:
+        w = w * gaspari_cohn(
+            jnp.abs(pob.verts[None, :] - pob.verts[:, None]),
+            pob.vert_radii[:, None],
+        ).astype(dtype)
+    if varloc is not None:
+        w = w * varloc[ob_var][:, ob_var]
+    return w
+
+
+def _panel_solve_kernel(tm, tp, pob: ObsArrays, localize: bool,
+                        unbiased: bool, fast_geometry: bool, vertical: bool,
+                        interpret: bool, dtype, varloc=None,
+                        ob_var=None) -> TailSolution:
+    """Serial solve of one obs panel through the Triton kernel
+    (:mod:`efa_xray_tpu.ops.tail_solve_triton`), wrapped as a
+    :class:`TailSolution`.  The ob-ob weight matrix is built here in XLA
+    and streamed into the kernel."""
+    from efa_xray_tpu.ops.tail_solve_triton import tail_panel_solve
+
+    wmat = _panel_weights(pob, localize, fast_geometry, vertical, dtype,
+                          varloc=varloc, ob_var=ob_var)
+    ptm, ptp, pye, pg, psq, ppm, ppv, pom, pov = tail_panel_solve(
         tm, tp, pob.values, pob.errors, pob.assim, wmat,
-        localize=localize, unbiased=unbiased, interpret=interpret,
+        unbiased=unbiased, interpret=interpret,
     )
     return TailSolution(
         ye=pye, gain_coef=pg, sqrt_coef=psq,
@@ -582,8 +603,7 @@ def _panel_solve_pallas(tm, tp, pob: ObsArrays, pxyz, localize: bool,
 @functools.partial(
     jax.jit,
     static_argnames=("localize", "unbiased", "fast_geometry", "vertical",
-                     "panel", "hybrid_alpha", "pallas_apply", "interpret",
-                     "pallas_tile", "max_radius_km"),
+                     "panel", "hybrid_alpha", "kernels", "interpret"),
 )
 def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                       localize: bool = True, unbiased: bool = False,
@@ -592,15 +612,10 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                       hybrid_alpha: float = 1.0,
                       tail_sigma=None,
                       static_length=None,
-                      pallas_apply: bool = False,
+                      kernels: bool = False,
                       interpret: bool = False,
-                      pallas_tile: int = 16384,
                       varloc=None,  # [nv(+1), nvars] cross-variable factors
                       ob_var=None,  # [No] int32
-                      max_radius_km=None,  # host-known bound on finite
-                      # radii: lets the fused Pallas apply pick the
-                      # cheaper sin-series weight form (see
-                      # ops/ensrf_pallas_fused._asin2_poly_u)
                       ) -> TailSolution:
     """Hierarchical (panel-blocked) phase 1 — same outputs as
     :func:`tail_scan`, exact up to fp reassociation.
@@ -619,23 +634,16 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
        weight since step 1 already updated them).
 
     Sequential work drops from ``No`` full-tail passes to ``No`` tiny
-    ``[B, M]`` steps + ``No/B`` MXU-blocked tail passes.
+    ``[B, M]`` steps + ``No/B`` blocked tail passes.
 
-    ``pallas_apply=True`` (TPU, chordal-geometry runs) routes BOTH phases
-    through Pallas: step 1's per-ob serial recurrence runs as one kernel
-    dispatch per panel on a VMEM-resident slab
-    (:mod:`efa_xray_tpu.ops.tail_solve_pallas` — removing the measured
-    ~13-15 us/ob XLA scan-step floor), and step 2 through the fused v4
-    kernel instead of the XLA ``apply_obs_block``: the per-ob recurrence
-    runs on VMEM-resident scratch in-kernel rather than as ~panel
-    sequential HLO ops — the dominant cost in the large-nobs regime
-    (measured: config 8, 50k obs).
-    Key exactness fact making this possible: the in-panel rows that the
-    XLA path masked out (``outside``) are overwritten by the exact panel
-    solution right after the apply, so masking is unnecessary and ANY
-    row-local applier works.  Weights use the kernel's chordal polynomial
-    (== ``fast_geometry`` semantics; requires ``fast_geometry`` when
-    localized, no hybrid).
+    ``kernels=True`` runs both steps as Triton kernels: step 1 as one
+    launch per panel with the slab in registers
+    (:mod:`efa_xray_tpu.ops.tail_solve_triton`), step 2 through the body
+    kernel (:mod:`efa_xray_tpu.ops.ensrf_triton`).  The in-panel rows
+    that the XLA path masks out (``outside``) are overwritten by the
+    exact panel solution right after the apply, so masking is
+    unnecessary and any row-local applier works.  Not available with the
+    hybrid static column.
     """
     nens = tail_perts.shape[1]
     dtype = tail_perts.dtype
@@ -645,58 +653,19 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
         if hybrid else {}
     use_vl = varloc is not None
     vkw = dict(varloc=varloc, ob_var=ob_var) if use_vl else {}
-    if pallas_apply and (hybrid or use_vl
-                         or (localize and not fast_geometry)):
-        raise ValueError(
-            "pallas_apply tail requires chordal geometry (fast_geometry), "
-            "no hybrid static column and no variable localization"
-        )
-    # The in-kernel panel solve is bounded at 1024 obs per panel (its
-    # [p, p] weight slabs over-commit VMEM beyond that —
-    # ops/tail_solve_pallas); larger user-set panels keep the Pallas
-    # APPLY but solve each panel with the XLA scan (the pre-in-kernel
-    # behavior), instead of erroring out of a previously valid config.
-    solve_pallas = pallas_apply and panel <= 1024
+    if kernels and hybrid:
+        raise ValueError("the tail kernels have no hybrid static column")
     if nobs == 0 or nobs <= panel:
-        if solve_pallas and nobs > 0:
-            # One panel covers the whole batch: the in-kernel solve IS the
-            # tail (no out-of-panel rows to apply to).  Pad to the full
-            # panel width — the shape family measured on hardware
-            # (256/512/1024); padded obs have assim=False so they are
-            # exact no-ops — then slice every output back.
-            pad1 = panel - nobs
-            obs1 = obs.with_default_verts()
-
-            def pad_f(x, fill=0.0):
-                return jnp.pad(x.astype(dtype), (0, pad1),
-                               constant_values=fill)
-
-            obs1 = ObsArrays(
-                values=pad_f(obs1.values),
-                errors=pad_f(obs1.errors, 1.0),
-                lats=pad_f(obs1.lats),
-                lons=pad_f(obs1.lons),
-                radii=pad_f(obs1.radii, jnp.inf),
-                assim=jnp.pad(obs1.assim, (0, pad1)),
-                verts=pad_f(obs1.verts),
-                vert_radii=pad_f(obs1.vert_radii, jnp.inf),
-            )
-            sol = _panel_solve_pallas(
-                jnp.pad(tail_mean, (0, pad1)),
-                jnp.pad(tail_perts, ((0, pad1), (0, 0))),
-                obs1,
-                latlon_to_unit(obs1.lats, obs1.lons).astype(dtype)
-                if (localize and fast_geometry) else None,
-                localize=localize, unbiased=unbiased, vertical=vertical,
+        if kernels and nobs > 0:
+            # One panel covers the whole batch: the kernel solve IS the
+            # tail (no out-of-panel rows to apply to).
+            return _panel_solve_kernel(
+                tail_mean, tail_perts, obs.with_default_verts(),
+                localize=localize, unbiased=unbiased,
+                fast_geometry=fast_geometry, vertical=vertical,
                 interpret=interpret, dtype=dtype,
-            )
-            return TailSolution(
-                ye=sol.ye[:nobs],
-                gain_coef=sol.gain_coef[:nobs],
-                sqrt_coef=sol.sqrt_coef[:nobs],
-                tail_mean=sol.tail_mean[:nobs],
-                tail_perts=sol.tail_perts[:nobs],
-                diags=ObsDiagnostics(*(d[:nobs] for d in sol.diags)),
+                varloc=jnp.asarray(varloc, dtype) if use_vl else None,
+                ob_var=jnp.asarray(ob_var, jnp.int32) if use_vl else None,
             )
         return tail_scan(tail_mean, tail_perts, obs, localize=localize,
                          unbiased=unbiased, fast_geometry=fast_geometry,
@@ -755,22 +724,16 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
             verts=sl(verts, base),
             vert_radii=sl(vrads, base),
         )
-        # 1. exact serial solve on the panel's own rows.  On the Pallas
-        # path the whole per-ob recurrence runs in ONE kernel dispatch
-        # (:func:`efa_xray_tpu.ops.tail_solve_pallas.tail_panel_solve_pallas`)
-        # instead of `panel` XLA scan steps — the measured ~13-15 us/ob
-        # step-dispatch floor of the large-nobs regime.  (`solve_pallas`
-        # additionally requires panel <= 1024 — the kernel's VMEM bound;
-        # beyond it the solve is the XLA scan and only the apply is
-        # Pallas.)
-        if solve_pallas:
-            sol = _panel_solve_pallas(
+        # 1. exact serial solve on the panel's own rows.
+        if kernels:
+            sol = _panel_solve_kernel(
                 jax.lax.dynamic_slice_in_dim(tm, base, panel),
                 jax.lax.dynamic_slice_in_dim(tp, base, panel, axis=0),
-                pob,
-                sl(all_xyz, base) if localize else None,
-                localize=localize, unbiased=unbiased, vertical=vertical,
+                pob, localize=localize, unbiased=unbiased,
+                fast_geometry=fast_geometry, vertical=vertical,
                 interpret=interpret, dtype=dtype,
+                varloc=vl if use_vl else None,
+                ob_var=sl(ovarr, base) if use_vl else None,
             )
         else:
             sol = tail_scan(
@@ -786,20 +749,21 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
         # in-panel rows' apply results are irrelevant — they are
         # overwritten with the exact step-1 solution below — so the
         # applier may touch them freely (the XLA path still masks them to
-        # keep fp-identical parity with historical results; the Pallas
+        # keep fp-identical parity with historical results; the kernel
         # path does not need to).
-        if pallas_apply:
-            from efa_xray_tpu.ops.ensrf_pallas_fused import _fused_impl
+        if kernels:
+            from efa_xray_tpu.ops.ensrf_triton import body_update
 
-            tm2, tp2 = _fused_impl(
+            tm2, tp2 = body_update(
                 tm, tp, lats, lons, sol, pob,
-                body_vert=verts if (localize and vertical) else None,
                 localize=localize,
-                block_size=min(128, panel),
-                tile=pallas_tile,
-                interpret=interpret,
+                geometry="chordal" if fast_geometry else "haversine",
+                body_vert=verts if (localize and vertical) else None,
                 vertical=(localize and vertical),
-                max_radius_km=max_radius_km,
+                varloc=vl if use_vl else None,
+                row_var=ovarr if use_vl else None,
+                ob_var=sl(ovarr, base) if use_vl else None,
+                interpret=interpret,
             )
             tm2 = jax.lax.dynamic_update_slice_in_dim(
                 tm2, sol.tail_mean, base, axis=0)
@@ -899,7 +863,7 @@ def _block_recurrence(d0, gram, w, gain_coef, sqrt_coef, panel: int = 8,
     Forward substitution is panel-blocked: corrections against already-
     solved columns are dense [rows, done] x [done, P] matmuls (one per
     panel) instead of one [rows, B] matvec per step — this cuts re-reads
-    of V from B to B/P passes and keeps the FLOPs on the MXU.  The
+    of V from B to B/P passes and keeps the FLOPs in matrix products.  The
     correction for step j subtracts V's columns against the Gram matrix:
     d_j = (X_0 Y^T)_j - sum_{i<j} V_i G_ij, which reduces to the pure
     recurrence of the module docstring when static_tilde is None.
@@ -909,8 +873,7 @@ def _block_recurrence(d0, gram, w, gain_coef, sqrt_coef, panel: int = 8,
     # Accumulate solved columns incrementally (one concatenate per panel +
     # one per in-panel step on a <= panel-wide slab).  A naive
     # re-stack-all-columns-per-step formulation traces O(B^2) stack ops,
-    # which blows up compile time at the default block_size=128 whenever
-    # this XLA fallback runs instead of the Pallas kernel.
+    # which blows up compile time at the default block_size=128.
     u_done = None  # [rows, base] U columns solved in previous panels
     v_done = None  # [rows, base] V columns (drive the corrections)
     for base in range(0, bsz, panel):
@@ -946,7 +909,7 @@ def apply_obs_block(body_mean, body_perts, ye_block, gain_coef, sqrt_coef,
     """Apply one block of B pre-solved observations to the state body.
 
     ``ye_block [B, M]``, coefficients ``[B]``, ``w_block [rows, B]`` (or
-    None for no localization).  Two MXU matmuls + a B-step recurrence.
+    None for no localization).  Two matrix products + a B-step recurrence.
 
     Hybrid static-covariance extension (generalizes the reference's pure
     ensemble gain, ``efa_xray/assimilation/ensrf.py:95,119``): the static

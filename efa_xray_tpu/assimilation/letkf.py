@@ -10,7 +10,7 @@ This solver is an extension beyond the reference.  Where the EnSRF
 assimilates observations strictly serially (each ob updates the state the
 next ob sees — SURVEY.md §7 lists this as the fundamental scaling limit),
 the LETKF analyzes **all observations at once** with an independent
-ensemble-space solve per local patch: batched MXU matmuls end to end, no
+ensemble-space solve per local patch: batched matrix products end to end, no
 sequential scan over observations (see
 :mod:`efa_xray_tpu.assimilation.letkf_core` for the math and references).
 

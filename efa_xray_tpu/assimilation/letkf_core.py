@@ -1,4 +1,4 @@
-"""TPU-native LETKF: batched local ensemble transform Kalman filter.
+"""LETKF: batched local ensemble transform Kalman filter.
 
 An extension beyond the reference, which implements only the *serial*
 square-root filter (``efa_xray/assimilation/ensrf.py:50-149``) whose
@@ -7,15 +7,15 @@ The LETKF (Hunt, Kostelich & Szunyogh 2007, Physica D 230:112) removes that
 bottleneck: every observation is assimilated simultaneously, and the
 analysis decomposes into an independent ensemble-space solve per local
 region — embarrassingly parallel over the grid, which is exactly the shape
-TPUs want:
+accelerators want:
 
-* **obs selection** = one batched top-k over chordal dot products (MXU);
+* **obs selection** = one batched top-k over chordal dot products;
 * **ensemble-space matrices** ``C = Y^T diag(rho/R) Y`` = batched
-  ``[K, M] x [K, M]`` matmuls (MXU);
+  ``[K, M] x [K, M]`` matmuls;
 * **inverse square root** of ``A = (M-1) I + C`` via coupled Newton–Schulz
   iterations — *pure matmuls*, no eigendecomposition on the hot path
   (``jnp.linalg.eigh`` is available as a reference backend);
-* **weight application** = batched ``[S, M] x [M, M]`` matmuls (MXU).
+* **weight application** = batched ``[S, M] x [M, M]`` matmuls.
 
 Localization semantics differ from the serial EnSRF by construction: the
 EnSRF tapers the *gain* rows (B-localization); the LETKF tapers the
@@ -59,11 +59,11 @@ def _solve_precision_obj(solve_precision: str):
     None = ambient).  Governs the ensemble-SPACE solve chain only — the
     ``C = Y^T diag(rho/R) Y`` build, the Newton–Schulz iterations, and the
     ``wbar`` solve, all tiny ``[C, K, M]`` / ``[C, M, M]`` operands — NOT
-    the big state-apply einsums.  Rationale: at the TPU default an f32
-    matmul ingests bf16 (one MXU pass), so the NS iteration stalls at a
-    ~1e-2 weight-matrix floor (see ``_invsqrt_newton_schulz``); pinning
-    just the solve chain buys back ~7.6x of that accuracy while the
-    FLOP-heavy applies keep single-pass speed."""
+    the big state-apply einsums.  Rationale: at a reduced-precision
+    default (TF32 inputs on a GPU) the NS iteration stalls at a floor set
+    by the input rounding (see ``_invsqrt_newton_schulz``); pinning just
+    the solve chain buys that accuracy back while the FLOP-heavy applies
+    keep full speed."""
     if solve_precision in (None, "default"):
         return None
     if solve_precision == "high":
@@ -88,20 +88,19 @@ class PatchWeights(NamedTuple):
 def _top_k(dots, k: int, method: str = "exact"):
     """Nearest-k selection by descending dot product.
 
-    ``method="approx"`` uses ``jax.lax.approx_max_k`` (the TPU-optimized
-    partial-reduction primitive, recall >= 0.95 per row) — obs SELECTION
+    ``method="approx"`` uses ``jax.lax.approx_max_k`` (a partial-reduction
+    primitive, recall >= 0.95 per row) — obs SELECTION
     tolerates approximation: a missed far-edge ob carries a near-zero
     Gaspari-Cohn weight by construction, so analysis impact is far below
     the localization truncation already accepted by nearest-k itself.
     """
     if method == "approx":
         return jax.lax.approx_max_k(dots, k, recall_target=0.95)
-    # Measured dead end (benchmarks/letkf_breakdown.py, pod slice):
     # approx_max_k(recall_target=1.0) — the partial-reduce op with loss
-    # disabled — runs at the SAME cost as the sort-based primitive
-    # (1.082 vs 1.084 s for the 524k-patch selection), so there is no
-    # fast exact path; "approx" (0.160 s, recall >= 0.95) is the fast
-    # option and exact selection stays on lax.top_k.
+    # disabled — ran at the SAME cost as the sort-based primitive on the
+    # previous accelerator (benchmarks/letkf_breakdown.py measures it),
+    # so exact selection stays on lax.top_k and "approx" (recall >= 0.95)
+    # is the fast option.
     return jax.lax.top_k(dots, k)
 
 
@@ -122,9 +121,9 @@ def select_local_obs(patch_xyz, obs_xyz, k: int, chunk: int = 4096,
     def one(pts):
         # HIGHEST is load-bearing exactly as in the taps search
         # (observation/forward.py:_topk_points_mapped): a default-precision
-        # f32 matmul ingests bf16 on the TPU MXU, and bf16 quantization of
-        # chord dots near 1.0 is ~sqrt(2*2^-8) rad ~ 560 km of ranking
-        # resolution — the nearest-k set then includes/excludes obs
+        # f32 matmul may round its inputs (TF32 on a GPU: ~sqrt(2*2^-11)
+        # rad ~ 200 km of ranking resolution for chord dots near 1.0;
+        # bf16 is worse) — the nearest-k set then includes/excludes obs
         # mis-ranked by hundreds of km, which (unlike the far-edge misses
         # "approx" tolerates) carry mid-range GC weights.  The K=3
         # contraction is noise next to the top_k that follows.
@@ -145,11 +144,11 @@ def _sel_cost(s: int, group: int) -> float:
     per-patch rescoring work is ~ S (dots + masked top_k), and per-GROUP
     work (obs_xyz gather + broadcast of the candidate row) is ~ S/group
     per patch — so shrinking the bundle shrinks S (tighter certificate)
-    but multiplies the shared-row overhead.  The relative weight is
-    fitted to on-chip A/Bs (benchmarks/letkf_breakdown.py --group):
-    pod slice g=64/16/4 -> S=512/384/296 -> 1.83/1.91/2.32 s (pick 64);
-    50k obs g=64/16/4 -> S=5296/1672/864 -> 0.259/0.130/0.151 s (pick
-    16).  cost = S*(1 + 16/g) reproduces both orderings."""
+    but multiplies the shared-row overhead.  The relative weight was
+    fitted to device A/Bs of forced bundle sizes at the pod slice (pick
+    64) and at 50k obs (pick 16) (benchmarks/letkf_breakdown.py
+    --group); cost = S*(1 + 16/g) reproduces both orderings.  Not
+    re-fitted on the H100."""
     return s * (1.0 + 16.0 / group)
 
 
@@ -162,7 +161,7 @@ def host_select_candidates(grid_lat, grid_lon, ngrid: int, patch_size: int,
     (``letkf_topk="host"``).
 
     The device-exact selection runs ``top_k`` over ALL ``No`` obs per
-    patch — measured at 45% of the pod-slice LETKF update
+    patch — a large share of the pod-slice LETKF update
     (``benchmarks/letkf_breakdown.py``), with no faster exact on-device
     form.  But the top-k problem has spatial structure a host kd-tree
     exploits (the same move ``taps_search="auto"`` made for the forward
@@ -238,9 +237,9 @@ def host_select_candidates(grid_lat, grid_lon, ngrid: int, patch_size: int,
         radius = rk + 2.0 * d + slack
         # Wide groups (space-curve jumps: members far from the centroid)
         # make the centroid certificate's ball huge — ONE such group would
-        # blow the global candidate width S toward No (measured at the pod
-        # slice: 83/8192 Hilbert-jump groups with d up to 1.05 rad pushed
-        # S to No).  For those, certify per member patch instead (d = 0 by
+        # blow the global candidate width S toward No (at the pod slice
+        # about 1% of groups straddle Hilbert jumps with d up to ~1 rad).
+        # For those, certify per member patch instead (d = 0 by
         # construction: ball(p, r_k(p) + slack) contains p's top-k by
         # definition) and take the union — a few clusters' worth of
         # candidates, not the sphere.
@@ -299,10 +298,8 @@ def host_select_candidates(grid_lat, grid_lon, ngrid: int, patch_size: int,
     # host queries).  Dense networks (2d >> r_k) want small bundles;
     # sparse ones don't care.  Rank group, group/4, group/16 by the
     # COUNT-only width estimate and materialize lists ONLY for the winner
-    # (the full 3x list materialization was the dominant build cost —
-    # 4.6 s at the pod slice; counts cut it ~2.5x).  Measured orderings
-    # unchanged (50k obs: 64 -> 16 cuts S 5296 -> 1672 and the update
-    # 0.259 -> 0.130 s).
+    # (the full 3x list materialization was the dominant build cost;
+    # counts cut it ~2.5x with the same choice of bundle).
     g0 = math.gcd(int(group), chunkc)
     cands_g = ((g0, *(g for g in (g0 // 4, g0 // 16)
                       if g >= 1 and g0 % g == 0))
@@ -339,7 +336,7 @@ def host_select_candidates(grid_lat, grid_lon, ngrid: int, patch_size: int,
 
 def _invsqrt_newton_schulz(a, iters: int, precision=None):
     """Batched ``(A^{-1/2}, A^{-1})`` for SPD ``A [..., M, M]`` with pure
-    matmuls (MXU-native; no eigendecomposition).
+    matmuls (no eigendecomposition).
 
     Coupled Newton–Schulz (Denman–Beavers variant): scale ``A`` by an upper
     spectral bound c (max abs row sum), then iterate
@@ -349,12 +346,10 @@ def _invsqrt_newton_schulz(a, iters: int, precision=None):
     linear phase ~log2(condition number) plus the quadratic tail.
 
     ``precision``: matmul precision of the iteration einsums (None =
-    ambient).  At the TPU default the iteration stalls at the bf16 floor
-    (measured: 1.49e-2 rel maxabs vs a f64 eigh oracle on body-shaped
-    amat batches); ``Precision.HIGHEST`` converges ~7.6x closer
-    (1.97e-3) at multi-pass matmul cost
-    (benchmarks/letkf_solve_precision_ab.py) — thread via
-    ``letkf_update(solve_precision=...)``.
+    ambient).  At a reduced-precision default the iteration stalls at the
+    input-rounding floor; ``Precision.HIGHEST`` converges to f32 at the
+    cost of true-f32 matmuls (benchmarks/letkf_solve_precision_ab.py) —
+    thread via ``letkf_update(solve_precision=...)``.
     """
     m = a.shape[-1]
     dtype = a.dtype
@@ -369,12 +364,11 @@ def _invsqrt_newton_schulz(a, iters: int, precision=None):
     # (the iteration's fixed point at nominal working precision) OR the
     # error entered the quadratic regime (err < 0.1 — in it, one exact
     # iteration SQUARES the error) yet failed to halve — i.e. it stalled
-    # at the matmul-precision floor.  The stall test is what actually
-    # fires on TPU: f32 einsums run as bf16 passes on the MXU, so the
-    # floor sits near ~1e-2 and the eps-based tolerance alone never
-    # triggers (measured: the loop ran its full cap, 5.29 s on the
-    # 10k-obs pod slice; a 12-iteration cap gives 3.43 s — iterating at
-    # the floor buys nothing).  For well-conditioned LETKF systems
+    # at the matmul-precision floor.  The stall test is what fires under
+    # reduced-precision f32 einsums (TF32, bf16 passes): the floor sits
+    # well above eps and the eps-based tolerance alone never triggers, so
+    # the loop would run its full cap — iterating at the floor buys
+    # nothing.  For well-conditioned LETKF systems
     # (lambda_min >= M-1 by construction) convergence lands around 8-12
     # iterations.  The stall test stays disabled above err = 0.1 because
     # small eigenvalues mu grow only ~2.25x per early iteration, so err
@@ -423,7 +417,7 @@ def _invsqrt_newton_schulz(a, iters: int, precision=None):
 
 
 def _invsqrt_eigh(a):
-    """Reference backend: batched eigendecomposition (exact, slower on TPU)."""
+    """Reference backend: batched eigendecomposition (exact, slower)."""
     e, v = jnp.linalg.eigh(a)
     e = jnp.maximum(e, jnp.asarray(1e-30, a.dtype))
     inv_sqrt = jnp.einsum(
@@ -755,8 +749,8 @@ def _analyze_body_chunked(
                 pos, axis=-1,
             ).reshape(chunk, k)
         else:
-            # precision=HIGHEST: bf16 MXU ingestion would mis-rank the
-            # nearest-k selection by ~560 km — see select_local_obs.
+            # precision=HIGHEST: rounded dot inputs would mis-rank the
+            # nearest-k selection by hundreds of km — see select_local_obs.
             dots = jnp.einsum(
                 "pc,oc->po", px, obs_xyz,
                 preferred_element_type=jnp.float32,
@@ -856,8 +850,8 @@ def letkf_update(
     topk_method: str = "exact",
     unbiased: bool = False,
     solve_precision: str = "default",  # ensemble-space solve matmul
-    # precision: "default" (ambient — one bf16 MXU pass on TPU, NS floor
-    # ~1e-2), "high" (3-pass) or "highest" (true f32 fixed point ~1e-5);
+    # precision: "default" (ambient — TF32 on a GPU, NS floor set by the
+    # input rounding), "high" or "highest" (true f32 fixed point ~1e-5);
     # see _solve_precision_obj
     sel_cand=None,  # [Gn, S] topk_method="host": certified candidates
     sel_mask=None,  # [Gn, S]

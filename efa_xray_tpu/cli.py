@@ -153,7 +153,6 @@ def cmd_assimilate(args):
         method=args.method,
         dtype=args.dtype,
         fast_geometry=args.fast_geometry,
-        mxu_bf16=args.mxu_bf16,
         matmul_precision=args.matmul_precision,
         spatial_sort=args.sort_spatial,
         rtps_alpha=args.rtps,
@@ -388,7 +387,7 @@ def cmd_verify(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="efa-xray-tpu",
-        description="TPU-native ensemble data assimilation (EnSRF / LETKF)",
+        description="Ensemble data assimilation (EnSRF / LETKF)",
     )
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -420,7 +419,7 @@ def main(argv=None):
                       help="perturbation seed for --solver enkf")
     p_as.add_argument("--sort-spatial", action="store_true",
                       help="Morton-sort obs and state rows (maximizes the "
-                           "fused kernel's localization culling)")
+                           "body kernel's localization culling)")
     p_as.add_argument("--inflation", type=float, default=None)
     p_as.add_argument("--radius", type=float, default=None,
                       help="default GC halfwidth km for obs without one")
@@ -456,19 +455,13 @@ def main(argv=None):
                       help="RTPP posterior relaxation alpha (Zhang et al. "
                            "2004); exclusive with --rtps")
     p_as.add_argument("--fast-geometry", action="store_true")
-    p_as.add_argument("--mxu-bf16", action="store_true",
-                      help="explicit bf16 casts on the fused kernel's two "
-                           "large matmuls (measured no-op on TPU: default "
-                           "f32 dots already run single-pass bf16; see "
-                           "--matmul-precision)")
     p_as.add_argument("--matmul-precision", default=None,
                       choices=["default", "high", "highest", "bfloat16",
                                "tensorfloat32", "float32"],
-                      help="what an f32 matmul means on the MXU for the "
-                           "whole update (XLA einsums AND Pallas dots): "
-                           "TPU default truncates inputs to bf16 "
-                           "(~2.4e-3 rel.); 'highest' = multi-pass true "
-                           "f32 (~1e-7) for accuracy-pinned reruns")
+                      help="what an f32 matmul means for the whole update "
+                           "(XLA einsums AND Triton kernel dots): the GPU "
+                           "default runs TF32 (~1e-3 rel. input rounding); "
+                           "'highest' = true f32 for accuracy-pinned reruns")
     p_as.add_argument("--taps-topk", default="exact",
                       choices=["exact", "approx"],
                       help="forward-operator nearest-point candidate "

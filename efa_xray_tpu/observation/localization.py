@@ -144,8 +144,8 @@ def morton3d_keys(xyz, bits: int = 10):
 
     Sorting rows of a scattered state by these keys makes consecutive rows
     spatially adjacent on the sphere, so a contiguous row tile covers a
-    compact cap — the property the fused kernel's localization culling
-    (:mod:`efa_xray_tpu.ops.ensrf_pallas_fused`) needs to skip
+    compact cap — the property the body kernel's localization culling
+    (:mod:`efa_xray_tpu.ops.ensrf_triton`) needs to skip
     (row-tile, obs-block) pairs whose Gaspari-Cohn weights are all zero.
     """
     scale = jnp.uint32((1 << bits) - 1)
@@ -173,9 +173,8 @@ def hilbert3d_keys(xyz, bits: int = 10):
 
     Same role as :func:`morton3d_keys`, but the Hilbert curve has no
     Z-order jumps: every pair of consecutive cells is face-adjacent, so
-    contiguous tiles cover more compact caps.  Measured on the
-    1e7-row pod workload this tightens the fused kernel's cull bound from
-    19.6% to 17.9% alive panels (Hilbert rows + obs vs Morton both).
+    contiguous tiles cover more compact caps, which tightens the body
+    kernel's cull bound.
     Vectorized Skilling AxesToTranspose (J. Skilling, "Programming the
     Hilbert curve", AIP Conf. Proc. 707, 2004) + MSB-first interleave;
     3 * bits <= 30 bits fit a uint32 at the default precision.
@@ -222,9 +221,8 @@ def spatial_sort_order(lat, lon, bits: int = 10):
     definition (the reference itself shuffles it, ``efa_demo.ipynb`` cell
     11); sorting obs spatially is therefore an explicit, documented choice
     that picks one valid assimilation order that maximizes localization
-    sparsity.  Hilbert keys replaced Morton in round 3 (jump-free curve →
-    more compact row tiles → measured 19.6% → 17.9% alive cull panels at
-    the pod workload).
+    sparsity.  Hilbert keys (a jump-free curve) give more compact tiles
+    than Morton keys.
     """
     return jnp.argsort(hilbert3d_keys(latlon_to_unit(lat, lon), bits=bits))
 

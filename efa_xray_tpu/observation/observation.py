@@ -2,7 +2,7 @@
 
 The reference models observations as a Python attribute bag, one object per
 ob (``efa_xray/observation/observation.py:17-36``), looped over in Python.
-TPU-natively a batch of observations is a *struct of arrays*
+On the device a batch of observations is a *struct of arrays*
 (:class:`ObservationBatch`): values, error variances, coordinates, times,
 per-ob localization radii, and QC masks — everything a jitted kernel needs
 as dense arrays, with human metadata (descriptions, type names) kept on the
@@ -311,11 +311,10 @@ class ObservationBatch:
         Observation order is the CALLER's choice in a serial filter (the
         analysis is weakly order-dependent; the reference demo shuffles
         it, ``efa_demo.ipynb`` cell 11) — and spatially sorted obs are
-        the THROUGHPUT choice: the fused kernels cull (row-tile, obs
-        panel) pairs whose localization weights are provably zero, which
-        only engages when consecutive obs are spatially compact (measured
-        at the 500k-ob capacity point: random order 16.4 s, Hilbert
-        order 8.35 s — docs/recipes.md).  Diagnostics
+        the THROUGHPUT choice: the body kernel culls (row-tile, obs
+        block) pairs whose localization weights are provably zero, which
+        only engages when consecutive obs are spatially compact.
+        Diagnostics
         come back in the sorted order; invert with
         ``batch.take(np.argsort(order))``."""
         from efa_xray_tpu.observation.thinning import _hilbert3d_np

@@ -279,7 +279,7 @@ def sort_spatially(batch: ObservationBatch) -> ObservationBatch:
     reference itself assimilates in arbitrary order and even shuffles it
     (``efa_demo.ipynb`` cell 11) — so this picks one valid order, the one
     that maximizes localization sparsity: consecutive obs become spatially
-    adjacent, so the fused kernel's (row-tile, obs-panel) culling
+    adjacent, so the body kernel's (row-tile, obs-block) culling
     (``FilterConfig.cull`` + ``FilterConfig.spatial_sort``) can skip most
     of the provably-zero-weight work.  Without localization the analysis
     mean is order-independent (in exact arithmetic), making the sort free.

@@ -1,1 +1,2 @@
-# Pallas TPU kernels live here (see ensrf_pallas.py).
+"""Triton kernels for the EnSRF phases and the one place that selects
+them (:mod:`efa_xray_tpu.ops.select`)."""

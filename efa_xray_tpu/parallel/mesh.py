@@ -1,6 +1,6 @@
 """Device-mesh helpers.
 
-TPU-native replacement for the reference's multiprocessing layout
+Replacement for the reference's multiprocessing layout
 (``efa_xray/assimilation/assimilation.py:176-230``,
 ``efa_xray/state/ensemble.py:59-107``): instead of pickling state chunks
 through an ``mp.Queue``, the flattened state dimension is sharded over a

@@ -9,11 +9,11 @@ replicated obs-space tail.  So under ``shard_map``:
 * the body mean/perts and per-row lat/lon shard along the ``state`` axis;
 * the tail and all per-ob arrays replicate;
 * the tail update runs redundantly (and bit-identically) on every device;
-* **zero collectives** are issued inside the observation loop — the ICI is
-  touched only by the initial gather of observation priors (outside this
-  module) and the final result layout.
+* **zero collectives** are issued inside the observation loop — the
+  interconnect is touched only by the initial gather of observation priors
+  (outside this module) and the final result layout.
 
-This is the working TPU realization of the reference's intended
+This is the working realization of the reference's intended
 (broken) design: "obs-space priors computed once globally, then each worker
 runs the full serial EnSRF on its state chunk independently"
 (``efa_xray/assimilation/assimilation.py:176-230``).
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from efa_xray_tpu.assimilation import ensrf_core as core
+from efa_xray_tpu.ops.select import Kernels
 from efa_xray_tpu.parallel.mesh import STATE_AXIS, pad_rows, pad_to_multiple
 
 
@@ -68,11 +69,9 @@ def _ensrf_sharded_impl(
     localize: bool,
     method: str,
     block_size: int,
-    tile: int,
     axis_name: str,
     unbiased: bool,
-    use_pallas: bool,
-    interpret: bool,
+    kernels: Kernels,
     fast_geometry: bool,
     vertical: bool,
     tail_panel: int,
@@ -80,7 +79,6 @@ def _ensrf_sharded_impl(
     spatial_sort: bool,
     hybrid_alpha: float,
     static_length: float,
-    mxu_bf16: bool = False,
     use_varloc: bool = False,
 ):
     # The hybrid static column is per-row x per-ob separable, so it shards
@@ -97,16 +95,6 @@ def _ensrf_sharded_impl(
         ob_var = jnp.zeros(tail_mean.shape, jnp.int32)
     in_specs, out_specs = _shard_specs(
         axis_name, extra_in=(P(axis_name), P(), P(), P(axis_name), P()))
-    # The fully-fused v4 kernel applies whenever per-row weights are the
-    # right model — which a state shard always is (rows are an arbitrary
-    # slice); vertical localization is an in-kernel per-row factor.  Its
-    # geometry is chordal, so exact-haversine runs (fast_geometry=False
-    # under localization) keep the per-block v3.
-    fused = (
-        use_pallas
-        and method == "blocked"
-        and (fast_geometry or not localize)
-    )
 
     def local_update(bm, bp, tm, tp, blat, blon, bvert, ob, bsig, tsig,
                      vl, rvar, ovar):
@@ -121,44 +109,34 @@ def _ensrf_sharded_impl(
                 body_vert=bvert, vertical=vertical,
                 body_sigma=bsig if hybrid else None, **hkw, **vkw,
             )
+        # The tail replicates, so running it through the kernels stays
+        # collective-free.
         tail = core.tail_scan_blocked(
             tm, tp, ob, localize=localize, unbiased=unbiased,
             fast_geometry=fast_geometry, vertical=vertical,
             panel=tail_panel,
-            # Pallas tail (in-kernel panel solve + fused apply) rides the
-            # same selection as the fused body: real-TPU chordal runs
-            # only (the tail replicates, so this stays collective-free).
-            # It wins at every batch size (see EnSRF._tail_pallas).
-            pallas_apply=bool(fused and not interpret and not hybrid),
-            interpret=interpret,
-            pallas_tile=tile,
+            kernels=kernels.tail,
+            interpret=kernels.interpret,
             **hkw,
             **(dict(varloc=vl, ob_var=ovar) if use_varloc else {}),
         )
-        if fused:
-            from efa_xray_tpu.ops.ensrf_pallas_fused import (
-                ensrf_blocked_body_pallas_fused,
-            )
+        if kernels.body:
+            # A state shard is an arbitrary row slice, and the kernel's
+            # weights are per row: it applies to every shard as is.
+            from efa_xray_tpu.ops.ensrf_triton import body_update
 
-            bm, bp = ensrf_blocked_body_pallas_fused(
+            bm, bp = body_update(
                 bm, bp, blat, blon, tail, ob,
+                localize=localize,
+                geometry="chordal" if fast_geometry else "haversine",
                 body_vert=bvert if vertical else None,
-                localize=localize, block_size=block_size, tile=tile,
-                interpret=interpret, vertical=vertical,
+                vertical=vertical,
                 cull=cull, spatial_sort=spatial_sort,
                 hybrid=hybrid,
                 body_sigma=bsig if hybrid else None,
                 static_length=static_length if hybrid else None,
-                mxu_bf16=mxu_bf16,
-            )
-        elif use_pallas:
-            from efa_xray_tpu.ops.ensrf_pallas import ensrf_blocked_body_pallas
-
-            bm, bp = ensrf_blocked_body_pallas(
-                bm, bp, blat, blon, tail, ob,
-                localize=localize, block_size=block_size, tile=tile,
-                interpret=interpret, fast_geometry=fast_geometry,
-                body_vert=bvert, vertical=vertical,
+                interpret=kernels.interpret,
+                **vkw,
             )
         else:
             bm, bp = core.ensrf_blocked_body(
@@ -187,17 +165,17 @@ def _ensrf_sharded_impl(
 
 
 _SHARDED_STATIC = (
-    "mesh", "localize", "method", "block_size", "tile", "axis_name",
-    "unbiased", "use_pallas", "interpret", "fast_geometry", "vertical",
+    "mesh", "localize", "method", "block_size", "axis_name",
+    "unbiased", "kernels", "fast_geometry", "vertical",
     "tail_panel", "cull", "spatial_sort", "hybrid_alpha", "static_length",
-    "mxu_bf16", "use_varloc",
+    "use_varloc",
 )
 
 _ensrf_sharded_jit = jax.jit(_ensrf_sharded_impl, static_argnames=_SHARDED_STATIC)
 
 # Donates the (padded, device-placed) state shards: under the mesh the
-# posterior shards reuse the prior shards' HBM, so an 8-shard pod run does
-# not carry 2x peak state memory.  Safe only when the caller owns the
+# posterior shards reuse the prior shards' device memory, so a sharded run
+# does not carry 2x peak state memory.  Safe only when the caller owns the
 # buffers (EnSRF does — it formats the prior itself).
 _ensrf_sharded_jit_donating = jax.jit(
     _ensrf_sharded_impl, static_argnames=_SHARDED_STATIC, donate_argnums=(0, 1)
@@ -216,24 +194,20 @@ def ensrf_update_sharded(
     localize: bool = True,
     method: str = "blocked",
     block_size: int = 32,
-    tile: int = 16384,
     axis_name: str = STATE_AXIS,
     unbiased: bool = False,
-    use_pallas: bool = False,
-    interpret: bool = False,
+    kernels: Kernels = Kernels(body=False, tail=False, interpret=False),
     fast_geometry: bool = False,
     body_vert=None,
     vertical: bool = False,
     donate: bool = False,
-    tail_panel: int = 512,
+    tail_panel: int = 64,
     cull: bool = True,
     spatial_sort: bool = False,
     hybrid_alpha: float = 1.0,
     body_sigma=None,  # [Ns] static-B std per row (hybrid_alpha < 1)
     tail_sigma=None,  # [No] static-B std at ob locations
     static_length=None,  # km: GC halfwidth of the static covariance model
-    mxu_bf16: bool = False,  # bf16 MXU inputs on the fused kernel's two
-    # large matmuls (see FilterConfig.mxu_bf16)
     varloc=None,  # [nv(+1), nvars] cross-variable localization factors
     row_var=None,  # [Ns] int32 state-variable index per row
     ob_var=None,  # [No] int32 observed-variable index per ob
@@ -243,14 +217,14 @@ def ensrf_update_sharded(
     updates are no-ops that never touch real rows), shards the body, runs
     the row-local kernel, and unpads.
 
-    ``hybrid_alpha < 1`` blends the static-B covariance on every device
-    shard (``body_sigma`` shards with the rows; the ob-side scalars
+    ``kernels`` (:func:`efa_xray_tpu.ops.select.choose`) picks the XLA
+    programs or the Triton kernels for the tail and the body, as on one
+    device.  ``hybrid_alpha < 1`` blends the static-B covariance on every
+    device shard (``body_sigma`` shards with the rows; the ob-side scalars
     replicate) — the full hybrid gain stays row-local, zero collectives.
-    The flat v4 fused kernel carries the static column in-kernel (chordal
-    geometry); exact-haversine hybrid runs use the blocked XLA body.
 
     ``donate=True`` donates the state shards to the update (posterior
-    reuses the prior's HBM).  The caller's ``body_mean``/``body_perts``
+    reuses the prior's memory).  The caller's ``body_mean``/``body_perts``
     may be invalidated when no padding/re-placement copy was needed —
     only pass it when the caller owns and will not reuse them."""
     ns = body_mean.shape[0]
@@ -258,21 +232,12 @@ def ensrf_update_sharded(
     ns_pad = pad_to_multiple(ns, ndev)
     hybrid = hybrid_alpha < 1.0
     use_varloc = varloc is not None
-    if use_varloc:
-        # The fused/Pallas bodies have no factor input; keep the exact
-        # blocked XLA body (the class-level dispatch already does this —
-        # belt and braces for direct callers).
-        use_pallas = False
     if hybrid:
         if body_sigma is None or tail_sigma is None or static_length is None:
             raise ValueError(
                 "hybrid_alpha < 1 needs body_sigma, tail_sigma and "
                 "static_length"
             )
-        # The flat v4 kernel carries the static column (chordal geometry
-        # only); exact-haversine hybrid keeps the blocked XLA body.
-        if localize and not fast_geometry:
-            use_pallas = False
 
     bm = pad_rows(body_mean, ns_pad)
     bp = pad_rows(body_perts, ns_pad)
@@ -337,11 +302,9 @@ def ensrf_update_sharded(
         localize=localize,
         method=method,
         block_size=block_size,
-        tile=tile,
         axis_name=axis_name,
         unbiased=unbiased,
-        use_pallas=use_pallas,
-        interpret=interpret,
+        kernels=kernels,
         fast_geometry=fast_geometry,
         vertical=vertical,
         tail_panel=tail_panel,
@@ -351,7 +314,6 @@ def ensrf_update_sharded(
         static_length=(
             float(static_length) if static_length is not None else 0.0
         ),
-        mxu_bf16=mxu_bf16,
         use_varloc=use_varloc,
     )
     if ns != ns_pad:

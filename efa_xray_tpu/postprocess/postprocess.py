@@ -8,8 +8,12 @@ vectorized gather each, instead of the reference's per-ob Python loop.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
-import pandas as pd
+
+if TYPE_CHECKING:  # pandas is an optional install (DataFrame results)
+    import pandas as pd
 
 from efa_xray_tpu.observation import forward as _fwd
 from efa_xray_tpu.observation.observation import ObservationBatch
@@ -45,6 +49,8 @@ def obs_assimilation_statistics(
         assimilated = np.zeros(batch.nobs, dtype=bool)
 
     lead = timeutil.lead_hours(batch.times_s, prior.structure.times_s[0])
+    import pandas as pd
+
     df = pd.DataFrame(
         {
             "validtime": timeutil.to_datetime64(batch.times_s),

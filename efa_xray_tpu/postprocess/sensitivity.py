@@ -8,7 +8,7 @@ built for (Madaus & Hakim 2015, QJRMS):
 * :func:`ensemble_sensitivity` — Torn & Hakim (2008, MWR) regression
   sensitivity of a scalar forecast metric ``J`` to every state element,
   ``dJ/dx_i = cov(x_i, J) / var(x_i)``, with the correlation field and
-  an optional statistical-significance mask.  TPU-native: the whole
+  an optional statistical-significance mask.  On the device: the whole
   field is one ``[Ns, M] x [M]`` device matvec — no per-point loop.
 * :func:`observation_impact` — Ancell & Hakim (2007, MWR)-style
   prediction of the change in ``J``'s mean and variance from
@@ -27,10 +27,12 @@ results for analysis and plotting.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Union
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Union
 
 import numpy as np
-import pandas as pd
+
+if TYPE_CHECKING:  # pandas is an optional install (DataFrame results)
+    import pandas as pd
 
 import jax.numpy as jnp
 
@@ -211,6 +213,8 @@ def observation_impact(
     dj_mean[~qc] = np.nan
     dj_var[~qc] = np.nan
 
+    import pandas as pd
+
     return pd.DataFrame(
         {
             "obtype": list(batch.obtypes),
@@ -318,5 +322,7 @@ def greedy_obs_selection(
         mye = mye + kvec * innov
         yep = yep - beta * np.outer(kvec, ye_p)
         jp = jp - beta * kj * ye_p
+
+    import pandas as pd
 
     return pd.DataFrame(rows)

@@ -15,10 +15,12 @@ ones:
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 import numpy as np
-import pandas as pd
+
+if TYPE_CHECKING:  # pandas is an optional install (DataFrame results)
+    import pandas as pd
 
 from efa_xray_tpu.observation import forward as _fwd
 from efa_xray_tpu.observation.observation import ObservationBatch
@@ -61,6 +63,8 @@ def field_verification(state: EnsembleState, truth) -> pd.DataFrame:
                     "crps": float(mae - 0.5 * pair),
                 }
             )
+    import pandas as pd
+
     return pd.DataFrame(rows)
 
 
@@ -153,7 +157,7 @@ def desroziers_diagnostics(
 
     Input is the per-ob table from
     :func:`efa_xray_tpu.postprocess.postprocess.obs_assimilation_statistics`
-    (the TPU-native twin of ``efa_xray/postprocess/postprocess.py:8-39`` —
+    (the device twin of ``efa_xray/postprocess/postprocess.py:8-39`` —
     the reference computes the raw per-ob stats but offers no consistency
     analysis of them).  With background departures ``d_b = y - H(x_b)`` and
     analysis departures ``d_a = y - H(x_a)``, a filter using correct R and
@@ -202,6 +206,8 @@ def desroziers_diagnostics(
         rows = {"all": one(df)}
     else:
         rows = {k: one(g) for k, g in df.groupby(group_by)}
+    import pandas as pd
+
     out = pd.DataFrame.from_dict(rows, orient="index")
     out.index.name = group_by or "group"
     return out

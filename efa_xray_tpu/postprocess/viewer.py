@@ -11,7 +11,7 @@ Works in three modes, picked automatically by :func:`assimilation_viewer`:
 * **matplotlib.widgets** (any GUI backend): in-figure sliders;
 * **headless** (Agg): programmatic ``viewer.update(...)`` + ``save(path)``.
 
-TPU note: slider moves are shape-stable by construction — the observation
+Compile note: slider moves are shape-stable by construction — the observation
 batch is always built at ``max_obs`` and the count slider only toggles
 ``assimilate_this`` flags, so no jit recompiles happen while scrubbing.
 """

@@ -1,7 +1,7 @@
 """EnsembleState: the ensemble state vector as a JAX pytree.
 
 Replaces the reference's ``EnsembleState(xarray.Dataset)`` subclass
-(``efa_xray/state/ensemble.py:15-36``).  Design differences, all TPU-driven:
+(``efa_xray/state/ensemble.py:15-36``).  Design differences, all accelerator-driven:
 
 * data lives in ONE dense device array ``[nvars, ntimes, ny, nx, nmems]``
   rather than a dict of labeled variables — a single contiguous buffer that
@@ -567,7 +567,7 @@ class EnsembleState:
     # --- device placement -----------------------------------------------------
     def shard(self, mesh, axis_name: str = "state") -> "EnsembleState":
         """Place the state on a device mesh, sharded along the flattened
-        state dimension.  TPU-native replacement for the reference's broken
+        state dimension.  Replacement for the reference's broken
         ``split_state``/``reintegrate_state`` multiprocessing decomposition
         (``efa_xray/state/ensemble.py:59-107``)."""
         from efa_xray_tpu.parallel import mesh as _mesh

@@ -11,7 +11,7 @@ This example shows the batch-first pipeline this framework adds:
    and become an :class:`ObservationBatch` in one call;
 2. superobbing + distance thinning reduce the dense network;
 3. spherical Morton sorting picks the assimilation order that maximizes
-   the fused kernel's localization culling;
+   the body kernel's localization culling;
 4. the filter of choice (EnSRF / EnKF / LETKF) runs with per-ob
    diagnostics recorded;
 5. Desroziers (2005) consistency diagnostics check the assigned R;

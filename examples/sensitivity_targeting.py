@@ -48,7 +48,7 @@ def main():
     apply_platform(args)
 
     # the realized-vs-predicted identity check below is exact only in
-    # f64; enable x64 on CPU (TPU would silently run f32 — tolerance
+    # f64; enable x64 on CPU (an accelerator run stays f32 — tolerance
     # adapts below)
     import jax
 

@@ -1,10 +1,11 @@
 """Test harness config: virtual 8-device CPU mesh + float64.
 
 Multi-device sharding tests run on host-platform CPU devices
-(``xla_force_host_platform_device_count``) so no real TPU pod is needed;
+(``xla_force_host_platform_device_count``) so no real card is needed;
 float64 is enabled so parity tests against the NumPy oracle can hit 1e-6
-RMSE tolerances (TPU production runs use float32 — the library is
-dtype-generic).
+RMSE tolerances (production runs use float32 — the library is
+dtype-generic).  Tests marked ``gpu`` skip here; ``python chip_smoke.py``
+runs them on a CUDA GPU.
 """
 
 import os
@@ -15,7 +16,10 @@ os.environ["XLA_FLAGS"] = (
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+# chip_smoke.py runs the gpu-marked tests on the card with
+# EFA_TESTS_ON_GPU=1; everything else runs on the CPU.
+if os.environ.get("EFA_TESTS_ON_GPU") != "1":
+    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

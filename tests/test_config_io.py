@@ -64,6 +64,22 @@ def test_unknown_key_raises(tmp_path):
         FilterConfig.load(path)
 
 
+@pytest.mark.parametrize("field,value", [
+    ("pallas_tile", 8192), ("mxu_bf16", True),
+    ("small_host_threshold", 4_000_000),
+])
+def test_old_config_with_removed_field_loads(tmp_path, field, value):
+    """Config files written by older versions keep loading: fields this
+    version dropped are ignored with a warning, the rest applies."""
+    path = str(tmp_path / "cfg.json")
+    with open(path, "w") as f:
+        json.dump({field: value, "rtps_alpha": 0.3}, f)
+    with pytest.warns(UserWarning, match=field):
+        cfg = FilterConfig.load(path)
+    assert cfg.rtps_alpha == 0.3
+    assert not hasattr(cfg, field)
+
+
 def test_load_applies_validation_and_overrides(tmp_path):
     path = str(tmp_path / "cfg.json")
     with open(path, "w") as f:

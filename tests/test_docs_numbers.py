@@ -1,14 +1,15 @@
 """Every performance number the docs cite must have a committed raw point.
 
-Round-4 verdict: the one-shot capacity table appeared in README/recipes
-with no corresponding entry in any committed results JSON.  This test is
-the guard: a manifest of (cited number, where it is cited) -> (results
-file, selector, key) triples.  Editing a doc number without committing
-the raw measurement point breaks the build.
+A manifest of (cited number, where it is cited) -> (results file,
+selector, key) triples.  Editing a doc number without committing the raw
+measurement point breaks the build.  The raw points are H100 runs of
+``chip_smoke.py`` and of the kernel-vs-XLA probe, in
+``benchmarks/results_h100.json``; each entry names its card and power
+limit.
 
-The manifest lists the CURRENT headline citations; when a number is
-re-measured and the doc updated, update the manifest entry in the same
-commit as the doc.
+The manifest lists the CURRENT citations; when a number is re-measured
+and the doc updated, update the manifest entry in the same commit as the
+doc.
 """
 
 from __future__ import annotations
@@ -37,54 +38,32 @@ def _find(entries, **match):
 
 # (cited value, rel tolerance, doc location, results file, selector dict,
 #  value extractor)
+_KVX = {"config": "kernel-vs-xla-headline"}
+_SMOKE = {"config": "chip-smoke"}
 MANIFEST = [
-    # pod headline (README "Measured performance", bench.py protocol;
-    # round-5 weight-chain optimization)
-    (0.681, 0.02, "README headline 0.681 s", "results_v5e_r5.json",
-     {"config": "weight-chain-opt"},
-     lambda e: e["headline_ab_seconds"]["asin_series_plus_gc_outer_poly"]),
-    # demo-scale floor re-measure (r5)
-    (0.053, 0.05, "demo floor 0.053 s", "results_v5e_r5.json",
-     {"config": "0-demo"}, lambda e: e["seconds"]),
-    # chunked capacity, Hilbert-sorted (README/recipes r5)
-    (2.32, 0.03, "capacity 200k chunked 2.32 s", "results_v5e_r5.json",
-     {"config": "12b-obs-capacity-chunked"},
-     lambda e: next(p["seconds"] for p in e["points"]
-                    if p["nobs"] == 200_000 and p.get("obs_order") == "hilbert")),
-    (7.42, 0.03, "capacity 500k chunked 7.42 s", "results_v5e_r5.json",
-     {"config": "12b-obs-capacity-chunked"},
-     lambda e: next(p["seconds"] for p in e["points"]
-                    if p["nobs"] == 500_000 and p.get("obs_order") == "hilbert")),
-    # calibrated cycled production (recipes table, chip rows)
-    (0.989, 0.02, "recipes spread/RMSE 0.99 at damp 0.7/cap 1.7",
-     "results_v5e_r5.json",
-     {"config": "13-cycled-production", "adaptive_damp": 0.7},
-     lambda e: e["spread_over_rmse_2nd_half"]),
-    (0.570, 0.03, "README cycle total 0.57 s", "results_v5e_r5.json",
-     {"config": "13-cycled-production", "adaptive_damp": 0.7},
-     lambda e: min(x["late_cycle_total_seconds"]
-                   for x in [e] if "late_cycle_total_seconds" in x)),
-    (1.124, 0.02, "recipes spread/RMSE 1.12 at damp 0.75/cap 2.0",
-     "results_v5e_r5.json",
-     {"config": "13-cycled-production", "adaptive_damp": 0.75},
-     lambda e: e["spread_over_rmse_2nd_half"]),
-    # one-shot capacity (README r4 section 0.90 / 8.08 s; re-measured r5)
-    (0.889, 0.03, "capacity 100k one-shot 0.90 s", "results_v5e_r5.json",
-     {"config": "12-obs-capacity-point", "nobs": 100_000},
-     lambda e: e["ensrf_seconds"]),
-    (8.08, 0.03, "capacity 500k one-shot 8.08 s", "results_v5e_r5.json",
-     {"config": "12-obs-capacity-point", "nobs": 500_000},
-     lambda e: e["ensrf_seconds"]),
-    # L96 cycling (README round-3 narrative, corrected r5)
-    (0.9024, 0.02, "README L96 30-cycle RMSE 0.90", "results_v5e_r5.json",
-     {"config": "1-lorenz96"}, lambda e: e["mean_analysis_rmse_last30"]),
-    # LETKF numbers still cited from r3 (README solver section)
-    (1.8319, 0.02, "README LETKF pod host-topk 1.83 s",
-     "results_v5e_r3.json", {"config": "letkf-host-topk-pod"},
-     lambda e: e["full_host_seconds"]),
-    (0.12999, 0.02, "README LETKF 50k host 0.130 s",
-     "results_v5e_r3.json", {"config": "letkf-host-topk-50k"},
-     lambda e: e["full_host_seconds"]),
+    (0.281, 0.02, "README body kernel 0.281 s", "results_h100.json", _KVX,
+     lambda e: e["body_kernel_seconds"]),
+    (25.3, 0.02, "README XLA body 25.3 s", "results_h100.json", _KVX,
+     lambda e: e["body_xla_block128_seconds"]),
+    (0.039, 0.03, "README tail kernels 0.039 s", "results_h100.json", _KVX,
+     lambda e: e["tail_kernels_panel64_seconds"]),
+    (0.269, 0.02, "README XLA tail 0.269 s", "results_h100.json", _KVX,
+     lambda e: e["tail_xla_panel64_seconds"]),
+    (0.18, 0.05, "README cull alive fraction 18%", "results_h100.json", _KVX,
+     lambda e: e["cull_alive_fraction"]),
+    (0.385, 0.02, "README headline update 0.385 s", "results_h100.json",
+     _SMOKE, lambda e: e["headline_exact_kernel_update_steady_seconds"]),
+    (0.397, 0.02, "README fast-geometry update 0.397 s", "results_h100.json",
+     _SMOKE,
+     lambda e: e["headline_fast_geometry_kernel_update_steady_seconds"]),
+    (0.284, 0.02, "README LETKF config-2 0.284 s", "results_h100.json",
+     _SMOKE, lambda e: e["letkf_config2_steady_seconds"]),
+    (1.5e-3, 0.05, "README kernel vs XLA 1.5e-3 of the increment",
+     "results_h100.json", _SMOKE,
+     lambda e: e["checks"]["kernel_vs_xla_mean_default"]),
+    (2.4e-4, 0.05, "README kernel vs XLA 2.4e-4 at highest",
+     "results_h100.json", _SMOKE,
+     lambda e: e["checks"]["kernel_vs_xla_mean_highest"]),
 ]
 
 
@@ -111,13 +90,13 @@ def test_cited_number_has_committed_raw_point(cited, tol, where, fname,
 
 
 def test_results_files_cited_in_docs_exist():
-    """Any results_v5e_r*.json / MULTICHIP_r*.json / BENCH_r*.json filename
+    """Any results_*.json / MULTICHIP_r*.json / BENCH_r*.json filename
     mentioned in README or docs/ must exist in the repo."""
     docs = [os.path.join(ROOT, "README.md")]
     for d in os.listdir(os.path.join(ROOT, "docs")):
         docs.append(os.path.join(ROOT, "docs", d))
     pat = re.compile(
-        r"(results_v5e_r\d+\.json|MULTICHIP_r\d+\.json|BENCH_r\d+\.json)")
+        r"(results_[a-z0-9_]+\.json|MULTICHIP_r\d+\.json|BENCH_r\d+\.json)")
     missing = []
     for doc in docs:
         with open(doc) as f:

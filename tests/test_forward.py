@@ -597,9 +597,9 @@ def test_taps_search_device_knob_end_to_end():
 def test_taps_chord_dot_precision_is_highest():
     """Same regression guard as the LETKF selection: the device
     nearest-point search's chordal [chunk,3]x[3,ngrid] dot must carry
-    precision=HIGHEST — on TPU a default-precision f32 matmul ingests
-    bf16 (~560 km of ranking resolution near dot=1) and the top-m
-    candidate set misses true nearest points outright
+    precision=HIGHEST — a default-precision f32 matmul may round its
+    inputs (TF32 on a GPU: ~200 km of ranking resolution near dot=1) and
+    the top-m candidate set then misses true nearest points outright
     (benchmarks/taps_search_ab.py)."""
     import jax
     import jax.numpy as jnp

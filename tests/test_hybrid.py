@@ -117,9 +117,9 @@ def test_hybrid_config_validation():
     with pytest.raises(ValueError):
         FilterConfig(hybrid_alpha=0.5)  # missing sigma/length
     with pytest.raises(ValueError):
-        # the fused Pallas kernels have no static column
+        # the tail kernels have no static column
         FilterConfig(hybrid_alpha=0.5, static_b_sigma=1.0,
-                     static_b_length=500.0, use_pallas=True)
+                     static_b_length=500.0, tail_pallas=True)
     with pytest.raises(ValueError):
         FilterConfig(hybrid_alpha=1.5)
     # blocked method + hybrid is now a supported production combination
@@ -227,15 +227,15 @@ def test_hybrid_via_ensrf_api_blocked_and_mesh():
 
 
 # ---------------------------------------------------------------------------
-# Hybrid static column IN the fused v4 Pallas kernel (interpret mode on CPU;
-# compiles with Mosaic on real TPUs) — completes the perf stack for hybrid.
+# Hybrid static column IN the Triton body kernel (Pallas interpreter on the
+# CPU; compiled through Triton on a CUDA GPU).
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("alpha", [0.0, 0.5])
 @pytest.mark.parametrize("localize", [True, False])
 def test_fused_kernel_hybrid_matches_xla_body(alpha, localize):
-    from efa_xray_tpu.ops.ensrf_pallas_fused import _fused_impl
+    from efa_xray_tpu.ops.ensrf_triton import body_update
 
     rng = np.random.default_rng(0)
     ns, M, no = 200, 10, 24
@@ -268,12 +268,12 @@ def test_fused_kernel_hybrid_matches_xla_body(alpha, localize):
         bm, bp, blat, blon, tail, obs, localize=localize, block_size=8,
         fast_geometry=True, hybrid=True, body_sigma=bsig,
         static_length=1500.0)
-    bk, pk = _fused_impl(
-        bm, bp, blat, blon, tail, obs, localize=localize, block_size=8,
+    bk, pk = body_update(
+        bm, bp, blat, blon, tail, obs, localize=localize, geometry="chordal",
         tile=64, interpret=True, hybrid=True, body_sigma=bsig,
         static_length=1500.0)
-    # chordal (kernel) vs exact-haversine (XLA) static geometry + f32
-    # reassociation
+    # f32 reassociation (both sides take the static column on the exact
+    # great-circle distance)
     np.testing.assert_allclose(np.asarray(bk), np.asarray(bx), atol=5e-4,
                                rtol=0)
     np.testing.assert_allclose(np.asarray(pk), np.asarray(px), atol=5e-4,
@@ -282,8 +282,8 @@ def test_fused_kernel_hybrid_matches_xla_body(alpha, localize):
 
 def test_hybrid_via_api_pallas_matches_serial():
     """FilterConfig(hybrid, use_pallas=True, fast_geometry=True) routes the
-    static column through the fused kernel and matches the serial hybrid
-    to f32/chordal tolerance."""
+    static column through the body kernel (interpreter) and matches the
+    serial hybrid to f32/chordal tolerance."""
     state = make_demo_state(nmems=12, seed=4, dtype="float32")
     obs = make_demo_obs(state, nobs=5, seed=5, radius=1500.0)
 
@@ -291,24 +291,31 @@ def test_hybrid_via_api_pallas_matches_serial():
         cfg = FilterConfig(localization="GC", dtype="float32",
                            fast_geometry=True, hybrid_alpha=0.5,
                            static_b_sigma=1.5, static_b_length=800.0, **kw)
-        post, _ = EnSRF(state, list(obs), config=cfg, verbose=False).update()
+        filt = EnSRF(state, list(obs), config=cfg, verbose=False)
+        filt.interpret = bool(kw.get("use_pallas"))
+        post, _ = filt.update()
         return np.asarray(post.data)
 
     serial = run(method="serial")
-    pallas = run(method="blocked", use_pallas=True, pallas_tile=64,
-                 block_size=8)
+    pallas = run(method="blocked", use_pallas=True, block_size=8)
     np.testing.assert_allclose(pallas, serial, atol=2e-3, rtol=0)
 
 
 def test_hybrid_pallas_config_guard():
+    from efa_xray_tpu.ops import select
+
     with pytest.raises(ValueError):
-        # exact-haversine hybrid cannot use the fused kernel
+        # the tail kernels have no static column
         FilterConfig(hybrid_alpha=0.5, static_b_sigma=1.0,
-                     static_b_length=500.0, use_pallas=True,
-                     fast_geometry=False)
-    # chordal hybrid + fused kernel is a supported combination
-    FilterConfig(hybrid_alpha=0.5, static_b_sigma=1.0,
-                 static_b_length=500.0, use_pallas=True, fast_geometry=True)
+                     static_b_length=500.0, tail_pallas=True)
+    # the body kernel carries the static column on both geometries; the
+    # auto tail choice then keeps the XLA panel scan
+    for fg in (False, True):
+        cfg = FilterConfig(hybrid_alpha=0.5, static_b_sigma=1.0,
+                           static_b_length=500.0, use_pallas=True,
+                           fast_geometry=fg)
+        k = select.choose(cfg, interpret=True)
+        assert k.body and not k.tail
 
 
 def test_hybrid_rejected_by_enkf_and_letkf():
@@ -328,38 +335,40 @@ def test_hybrid_rejected_by_enkf_and_letkf():
             cls(state, list(obs), config=cfg, verbose=False).update()
 
 
-def test_fused_hybrid_weights_ablation_runs():
-    """The hybrid static column consumes the chordal angles even when the
-    "weights" ablation drops the localization taper (regression: `dist`
-    used to be gated on the ablation and hybrid tracing raised NameError)."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import _fused_impl
+def test_kernel_hybrid_exact_geometry_matches_xla():
+    """Exact-geometry (haversine) localization with the hybrid static
+    column in the body kernel matches the XLA body."""
+    from efa_xray_tpu.ops.ensrf_triton import body_update
 
     rng = np.random.default_rng(1)
     ns, M, no = 64, 8, 8
-    prior = rng.normal(280, 3, (ns, M)).astype(np.float32)
+    prior = rng.normal(280, 3, (ns, M))
     rows = rng.integers(0, ns, no)
     ye = prior[rows]
+    blat = jnp.asarray(rng.uniform(-60, 60, ns))
+    blon = jnp.asarray(rng.uniform(0, 360, ns))
     obs = core.ObsArrays(
-        values=jnp.asarray(ye.mean(1) + 1.0, jnp.float32),
-        errors=jnp.ones(no, jnp.float32),
-        lats=jnp.asarray(rng.uniform(-60, 60, no), jnp.float32),
-        lons=jnp.asarray(rng.uniform(0, 360, no), jnp.float32),
-        radii=jnp.full(no, 3000.0, jnp.float32),
+        values=jnp.asarray(ye.mean(1) + 1.0),
+        errors=jnp.ones(no),
+        lats=blat[rows], lons=blon[rows],
+        radii=jnp.full(no, 3000.0),
         assim=jnp.ones(no, bool),
     )
-    blat = jnp.asarray(rng.uniform(-60, 60, ns), jnp.float32)
-    blon = jnp.asarray(rng.uniform(0, 360, ns), jnp.float32)
     bm = jnp.asarray(prior.mean(1))
     bp = jnp.asarray(prior - prior.mean(1, keepdims=True))
     tm = jnp.asarray(ye.mean(1))
     tp = jnp.asarray(ye - ye.mean(1, keepdims=True))
-    bsig = jnp.full(ns, 1.5, jnp.float32)
+    bsig = jnp.full(ns, 1.5)
     tail = core.tail_scan_blocked(
-        tm, tp, obs, localize=True, fast_geometry=True, panel=4,
+        tm, tp, obs, localize=True, panel=4,
         hybrid_alpha=0.5, tail_sigma=bsig[rows], static_length=1500.0)
-    bk, pk = _fused_impl(
+    ref = core.ensrf_blocked_body(
         bm, bp, blat, blon, tail, obs, localize=True, block_size=4,
+        hybrid=True, body_sigma=bsig, static_length=1500.0)
+    got = body_update(
+        bm, bp, blat, blon, tail, obs, localize=True, geometry="haversine",
         tile=32, interpret=True, hybrid=True, body_sigma=bsig,
-        static_length=1500.0, ablate=("weights",))
-    assert np.isfinite(np.asarray(bk)).all()
-    assert np.isfinite(np.asarray(pk)).all()
+        static_length=1500.0)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-9,
+                                   rtol=1e-9)

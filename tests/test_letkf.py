@@ -323,7 +323,8 @@ def test_letkf_vertical_api_and_sharded():
 def test_letkf_topk_methods_agree_on_cpu():
     """letkf_topk="approx" (lax.approx_max_k) plumbs through the solver;
     on CPU the approximate primitive reduces to exact selection, so the
-    analyses must match bitwise — the TPU recall tradeoff is opt-in."""
+    analyses must match bitwise — the accelerator recall tradeoff is
+    opt-in."""
     from conftest import make_demo_obs, make_demo_state
     from efa_xray_tpu.assimilation.letkf import LETKF
 
@@ -359,12 +360,12 @@ def _collect_chord_dot_precisions(jaxpr, out):
 
 def test_select_local_obs_matches_f64_oracle():
     """Nearest-k selection must equal exact float64 chord ranking (set
-    equality per patch).  On TPU this is load-bearing: a default-precision
-    f32 matmul ingests bf16 on the MXU (~560 km ranking resolution near
-    dot=1) and mis-selected 51% of patches at config-6 geometry
+    equality per patch).  On an accelerator this is load-bearing: a
+    default-precision f32 matmul may round its inputs (TF32 on a GPU,
+    ~200 km of ranking resolution near dot=1) and mis-select patches
     (benchmarks/letkf_select_precision_ab.py); precision=HIGHEST restores
-    the oracle set at identical cost.  Exercises the chunk-padding path
-    (npatch not a multiple of chunk)."""
+    the oracle set.  Exercises the chunk-padding path (npatch not a
+    multiple of chunk)."""
     rng = np.random.default_rng(3)
     npatch, nobs, k = 1000, 300, 16
     plat = np.radians(rng.uniform(-88, 88, npatch))
@@ -385,7 +386,7 @@ def test_select_local_obs_matches_f64_oracle():
 
 
 def test_chord_dot_precision_is_highest_in_jaxprs():
-    """Regression guard for the TPU-only bf16 mis-ranking: every chordal
+    """Regression guard for the reduced-precision mis-ranking: every chordal
     dot in the traced selection AND the full letkf_update must carry
     precision=HIGHEST (CPU runs cannot surface the bug, so the trace is
     the only portable assertion)."""
@@ -419,10 +420,10 @@ def test_chord_dot_precision_is_highest_in_jaxprs():
 
 def test_letkf_solve_precision_plumbs_and_matches_on_cpu():
     """letkf_solve_precision pins the ensemble-space solve chain's matmul
-    precision (TPU: default bf16 ingestion stalls Newton-Schulz at a
-    ~1e-2 floor; highest converges to the f32 fixed point).  On CPU all
-    precisions execute identically, so the analyses must match bitwise —
-    the knob's accuracy effect is TPU-only and measured on chip
+    precision (reduced-precision inputs stall Newton-Schulz at their
+    rounding floor; highest converges to the f32 fixed point).  On CPU
+    all precisions execute identically, so the analyses must match
+    bitwise — the knob's accuracy effect shows only on an accelerator
     (benchmarks/letkf_solve_precision_ab.py)."""
     state = make_demo_state(ntimes=1, ny=10, nx=10, nmems=12, seed=3)
     obs = make_demo_obs(state, nobs=15, seed=4, radius=900.0)

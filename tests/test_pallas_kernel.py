@@ -1,5 +1,7 @@
-"""Fused Pallas phase-2 kernel vs the XLA reference path (interpret mode on
-CPU; the same kernel compiles with Mosaic on real TPUs)."""
+"""Triton kernels (phase-2 body sweep, phase-1 panel solve) vs the XLA
+reference path.  On the CPU they run in the Pallas interpreter; the same
+kernels compile through Triton on a CUDA GPU, where the ``gpu``-marked
+test runs them compiled."""
 
 import numpy as np
 import pytest
@@ -11,14 +13,12 @@ from conftest import make_demo_obs, make_demo_state
 from efa_xray_tpu.assimilation import ensrf_core as core
 from efa_xray_tpu.observation import forward as fwd
 from efa_xray_tpu.observation.observation import ObservationBatch
-from efa_xray_tpu.ops.ensrf_pallas import (
-    apply_obs_block_pallas,
-    ensrf_blocked_body_pallas,
-)
+from efa_xray_tpu.ops.ensrf_triton import body_update
 
 
-def _setup(nobs=12, nmems=16, seed=4, dtype=jnp.float32):
-    state = make_demo_state(ntimes=2, ny=8, nx=8, nmems=nmems, seed=seed)
+def _setup(nobs=12, nmems=16, seed=4, dtype=jnp.float32, ntimes=2, nvars=1):
+    state = make_demo_state(nvars=nvars, ntimes=ntimes, ny=8, nx=8,
+                            nmems=nmems, seed=seed)
     obs = make_demo_obs(state, nobs=nobs, seed=seed + 1, radius=700.0)
     batch = ObservationBatch.coerce(obs)
     s = state.structure
@@ -44,11 +44,19 @@ def _setup(nobs=12, nmems=16, seed=4, dtype=jnp.float32):
             obs_arr)
 
 
+
+
+def _close(got, ref, tol):
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("localize", [True, False])
 def test_single_block_matches_xla(localize):
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=8)
+    """One obs block: the kernel equals the XLA block operator."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=8, dtype=jnp.float64)
     tail = core.tail_scan(tm, tp, obs, localize=localize)
-
     if localize:
         from efa_xray_tpu.observation.localization import gaspari_cohn, haversine
 
@@ -57,263 +65,212 @@ def test_single_block_matches_xla(localize):
         w = gaspari_cohn(d, obs.radii[None, :]).astype(bp.dtype)
     else:
         w = None
-    bm_x, bp_x = core.apply_obs_block(bm, bp, tail.ye, tail.gain_coef,
-                                      tail.sqrt_coef, w)
-    bm_p, bp_p = apply_obs_block_pallas(
-        bm, bp, blat, blon, tail.ye, tail.gain_coef, tail.sqrt_coef,
-        obs.lats, obs.lons, obs.radii,
-        localize=localize, tile=64, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(bm_p), np.asarray(bm_x), rtol=2e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(bp_p), np.asarray(bp_x), rtol=2e-5, atol=1e-4)
+    ref = core.apply_obs_block(bm, bp, tail.ye, tail.gain_coef,
+                               tail.sqrt_coef, w)
+    got = body_update(bm, bp, blat, blon, tail, obs, localize=localize,
+                      geometry="haversine", interpret=True)
+    _close(got, ref, 1e-9)
 
 
 def test_full_blocked_body_matches_xla_multiple_blocks():
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=13)
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=40)
     tail = core.tail_scan(tm, tp, obs, localize=True)
-    bm_x, bp_x = core.ensrf_blocked_body(bm, bp, blat, blon, tail, obs,
-                                         localize=True, block_size=4)
-    bm_p, bp_p = ensrf_blocked_body_pallas(bm, bp, blat, blon, tail, obs,
-                                           localize=True, block_size=4,
-                                           tile=64, interpret=True)
-    np.testing.assert_allclose(np.asarray(bm_p), np.asarray(bm_x), rtol=2e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(bp_p), np.asarray(bp_x), rtol=2e-5, atol=1e-4)
+    ref = core.ensrf_blocked_body(bm, bp, blat, blon, tail, obs,
+                                  localize=True, block_size=4)
+    got = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                      geometry="haversine", block_size=16, interpret=True)
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
+                               rtol=2e-5, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
+                               rtol=2e-5, atol=1e-4)
 
 
 def test_pallas_respects_row_padding():
-    """Row count not a multiple of the tile: padded rows must not leak."""
+    """Row count not a multiple of the tile: masked rows must not leak."""
     bm, bp, tm, tp, blat, blon, obs = _setup(nobs=5)
     tail = core.tail_scan(tm, tp, obs, localize=True)
     nrows = bm.shape[0]
     assert nrows % 48 != 0
-    bm_p, bp_p = apply_obs_block_pallas(
-        bm, bp, blat, blon, tail.ye, tail.gain_coef, tail.sqrt_coef,
-        obs.lats, obs.lons, obs.radii, localize=True, tile=48, interpret=True,
-    )
+    bm_p, bp_p = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                             tile=48, interpret=True)
     assert bm_p.shape == (nrows,)
     assert bp_p.shape == bp.shape
     assert np.isfinite(np.asarray(bp_p)).all()
 
 
-def test_grid_mode_matches_flat_mode():
-    """ngrid (shared-grid weights, VT groups) must equal the flat path."""
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9, nmems=12)
-    tail = core.tail_scan(tm, tp, obs, localize=True)
-    nrows = bm.shape[0]
-    ngrid = 64  # state built as 2 times x (8x8) grid x 1 var -> 128 rows
-    assert nrows == 2 * ngrid
+@pytest.mark.parametrize("nmems", [5, 20, 80])
+@pytest.mark.parametrize("geometry", ["chordal", "haversine"])
+@pytest.mark.parametrize("ntimes", [1, 2], ids=["flat", "gridded"])
+def test_body_kernel_matches_xla(ntimes, geometry, nmems):
+    """The one body kernel on flat (one var/time) and gridded (vt = 2)
+    states, on both geometries and member counts below, at and above the
+    padded power of two: float64 equality with the XLA body up to
+    reassociation."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(
+        nobs=37, nmems=nmems, dtype=jnp.float64, ntimes=ntimes, seed=nmems)
+    fg = geometry == "chordal"
+    tail = core.tail_scan(tm, tp, obs, localize=True, fast_geometry=fg)
+    ref = core.ensrf_blocked_body(bm, bp, blat, blon, tail, obs,
+                                  localize=True, block_size=8,
+                                  fast_geometry=fg)
+    got = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                      geometry=geometry, tile=32, interpret=True)
+    _close(got, ref, 1e-9)
 
-    flat = apply_obs_block_pallas(
-        bm, bp, blat, blon, tail.ye, tail.gain_coef, tail.sqrt_coef,
-        obs.lats, obs.lons, obs.radii, localize=True, tile=64, interpret=True,
-    )
-    grid = apply_obs_block_pallas(
-        bm, bp, blat, blon, tail.ye, tail.gain_coef, tail.sqrt_coef,
-        obs.lats, obs.lons, obs.radii, localize=True, tile=64, interpret=True,
-        ngrid=ngrid,
-    )
-    np.testing.assert_allclose(np.asarray(grid[0]), np.asarray(flat[0]),
-                               rtol=2e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(grid[1]), np.asarray(flat[1]),
-                               rtol=2e-5, atol=1e-4)
+
+def test_grid_mode_matches_flat_mode():
+    """A gridded state's rows are independent: updating the two groups'
+    rows as two flat states equals updating the gridded state at once."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9, nmems=12,
+                                             dtype=jnp.float64)
+    tail = core.tail_scan(tm, tp, obs, localize=True)
+    ngrid = bm.shape[0] // 2
+    kw = dict(localize=True, geometry="haversine", tile=16, interpret=True)
+    whole = body_update(bm, bp, blat, blon, tail, obs, **kw)
+    halves = [body_update(bm[s], bp[s], blat[s], blon[s], tail, obs, **kw)
+              for s in (slice(0, ngrid), slice(ngrid, None))]
+    _close(whole, [jnp.concatenate([h[0] for h in halves]),
+                   jnp.concatenate([h[1] for h in halves])], 1e-12)
 
 
 def test_grid_mode_with_nondividing_tile():
-    """Grid smaller than / not dividing the tile: padding must stay inert."""
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=5, nmems=8)
+    """Tile larger than and not dividing the row count: masking stays
+    inert."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=5, nmems=8,
+                                             dtype=jnp.float64)
     tail = core.tail_scan(tm, tp, obs, localize=True)
-    flat = apply_obs_block_pallas(
-        bm, bp, blat, blon, tail.ye, tail.gain_coef, tail.sqrt_coef,
-        obs.lats, obs.lons, obs.radii, localize=True, tile=48, interpret=True,
-    )
-    grid = apply_obs_block_pallas(
-        bm, bp, blat, blon, tail.ye, tail.gain_coef, tail.sqrt_coef,
-        obs.lats, obs.lons, obs.radii, localize=True, tile=48, interpret=True,
-        ngrid=64,
-    )
-    np.testing.assert_allclose(np.asarray(grid[1]), np.asarray(flat[1]),
-                               rtol=2e-5, atol=1e-4)
+    a = body_update(bm, bp, blat, blon, tail, obs, localize=True, tile=16,
+                    interpret=True)
+    b = body_update(bm, bp, blat, blon, tail, obs, localize=True, tile=256,
+                    interpret=True)
+    _close(a, b, 1e-12)
 
 
-@pytest.mark.parametrize("localize", [True, False])
-def test_fused_v4_matches_v3(localize):
-    """The fully-fused kernel (state crosses HBM once) must match the
-    per-block kernel."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import ensrf_blocked_body_pallas_fused
-
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=13, nmems=16)
-    tail = core.tail_scan(tm, tp, obs, localize=localize)
-    v3 = ensrf_blocked_body_pallas(
-        bm, bp, blat, blon, tail, obs, localize=localize, block_size=4,
-        tile=64, interpret=True, fast_geometry=True,
-    )
-    v4 = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, localize=localize, block_size=4,
-        tile=64, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(v4[0]), np.asarray(v3[0]),
-                               rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(v4[1]), np.asarray(v3[1]),
-                               rtol=2e-5, atol=2e-4)
-
-
-def test_fused_v4_odd_row_count():
-    """nrows not a multiple of the tile (or of 8): Pallas edge-tile masking
-    must keep results exact and output shapes equal to input shapes (the
-    donation-aliasing contract: in/out buffers match for ANY row count)."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import ensrf_blocked_body_pallas_fused
-
+def test_body_kernel_odd_row_count():
+    """nrows not a multiple of the tile (or of 8): masking keeps results
+    exact and output shapes equal to input shapes (the donation-aliasing
+    contract: in/out buffers match for ANY row count)."""
     bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9, nmems=12, seed=3)
-    n = 123  # 128 grid rows -> 123: not a multiple of 8 or the tile
+    n = 123
     bm, bp, blat, blon = bm[:n], bp[:n], blat[:n], blon[:n]
     tail = core.tail_scan(tm, tp, obs, localize=True)
     ref = core.ensrf_blocked_body(bm, bp, blat, blon, tail, obs,
                                   localize=True, block_size=3,
                                   fast_geometry=True)
-    v4 = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, localize=True, block_size=3,
-        tile=48, interpret=True,
-    )
-    assert v4[0].shape == bm.shape and v4[1].shape == bp.shape
-    np.testing.assert_allclose(np.asarray(v4[0]), np.asarray(ref[0]),
+    got = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                      block_size=16, tile=32, interpret=True)
+    assert got[0].shape == bm.shape and got[1].shape == bp.shape
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
                                rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(v4[1]), np.asarray(ref[1]),
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
                                rtol=2e-5, atol=2e-4)
 
 
-@pytest.mark.parametrize("localize", [True, False])
-def test_fused_v4_corr2_fma_matches_dot(localize):
-    """The scalar-broadcast FMA form of the within-panel correction is
-    algebraically identical to the small-dot form (summation order is the
-    only difference)."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import ensrf_blocked_body_pallas_fused
-
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=13, nmems=16, seed=6)
-    tail = core.tail_scan(tm, tp, obs, localize=localize)
-    kw = dict(localize=localize, block_size=4, tile=64, interpret=True)
-    dot = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, corr2_form="dot", **kw)
-    fma = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, corr2_form="fma", **kw)
-    np.testing.assert_allclose(np.asarray(fma[0]), np.asarray(dot[0]),
-                               rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(fma[1]), np.asarray(dot[1]),
-                               rtol=2e-5, atol=2e-4)
+def test_body_kernel_partial_last_block():
+    """nobs one past a block boundary: the padded obs of the last block
+    are exact no-ops."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=33, nmems=10,
+                                             dtype=jnp.float64)
+    tail = core.tail_scan(tm, tp, obs, localize=True)
+    ref = core.ensrf_blocked_body(bm, bp, blat, blon, tail, obs,
+                                  localize=True, block_size=33)
+    got = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                      geometry="haversine", block_size=16, interpret=True)
+    _close(got, ref, 1e-9)
 
 
 def test_fused_v4_matches_xla_exact():
-    """v4 vs the exact-geometry XLA blocked path (weight-formula tolerance)."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import ensrf_blocked_body_pallas_fused
-
+    """Chordal kernel vs the exact-geometry XLA body (weight-formula
+    tolerance)."""
     bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9, nmems=12, seed=8)
     tail = core.tail_scan(tm, tp, obs, localize=True)
     ref = core.ensrf_blocked_body(bm, bp, blat, blon, tail, obs,
                                   localize=True, block_size=3)
-    v4 = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, localize=True, block_size=3,
-        tile=48, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(v4[0]), np.asarray(ref[0]),
+    got = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                      geometry="chordal", tile=48, interpret=True)
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
                                rtol=2e-4, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(v4[1]), np.asarray(ref[1]),
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
                                rtol=2e-4, atol=2e-3)
 
 
-def test_fused_v4_gridded_state_with_vertical():
-    """v4 on a vt>1 gridded state with vertical localization must match the
-    exact XLA blocked path (per-row weights are exact for gridded rows)."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import ensrf_blocked_body_pallas_fused
-
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9, nmems=12, seed=6)
-    nrows = bm.shape[0]  # 2 times x 64 grid points
-    rng = np.random.default_rng(0)
-    body_vert = jnp.asarray(
-        np.repeat([500.0, 850.0], nrows // 2), dtype=bp.dtype
-    )
+def _vertical_obs(obs, nrows, dtype, seed):
+    rng = np.random.default_rng(seed)
+    body_vert = jnp.asarray(np.repeat([500.0, 850.0], nrows // 2), dtype)
+    n = obs.values.shape[0]
     obs = obs._replace(
-        verts=jnp.asarray(rng.uniform(400, 900, obs.values.shape[0]),
-                          dtype=bp.dtype),
+        verts=jnp.asarray(rng.uniform(400, 900, n), dtype),
         vert_radii=jnp.asarray(
-            np.where(np.arange(obs.values.shape[0]) % 3 == 0, np.inf, 300.0),
-            dtype=bp.dtype),
+            np.where(np.arange(n) % 3 == 0, np.inf, 300.0), dtype),
     )
-    tail = core.tail_scan(tm, tp, obs, localize=True)
+    return body_vert, obs
+
+
+@pytest.mark.parametrize("geometry", ["chordal", "haversine"])
+def test_fused_v4_gridded_state_with_vertical(geometry):
+    """Gridded state with vertical localization: the per-row vertical GC
+    factor matches the XLA body."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9, nmems=12, seed=6,
+                                             dtype=jnp.float64)
+    body_vert, obs = _vertical_obs(obs, bm.shape[0], bp.dtype, 0)
+    fg = geometry == "chordal"
+    tail = core.tail_scan(tm, tp, obs, localize=True, fast_geometry=fg)
     ref = core.ensrf_blocked_body(
         bm, bp, blat, blon, tail, obs, localize=True, block_size=3,
-        fast_geometry=True, body_vert=body_vert, vertical=True,
+        fast_geometry=fg, body_vert=body_vert, vertical=True,
     )
-    v4 = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, body_vert=body_vert,
-        localize=True, block_size=3, tile=48, interpret=True, vertical=True,
-    )
-    np.testing.assert_allclose(np.asarray(v4[0]), np.asarray(ref[0]),
-                               rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(v4[1]), np.asarray(ref[1]),
-                               rtol=2e-5, atol=2e-4)
+    got = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                      geometry=geometry, body_vert=body_vert, vertical=True,
+                      tile=32, interpret=True)
+    _close(got, ref, 1e-9)
 
 
-@pytest.mark.parametrize("vertical", [False, True])
-def test_fused_v4_grid_matches_flat(vertical):
-    """v4-grid (per-grid-point weights streamed from XLA, state resident
-    across all blocks) must match the per-row v4 on a vt>1 gridded state."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import (
-        ensrf_blocked_body_pallas_fused,
-        ensrf_blocked_body_pallas_fused_grid,
-    )
-
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9, nmems=12, seed=14)
-    nrows = bm.shape[0]
-    ngrid = 64  # 2 times x (8x8 grid): rows = (vt=2, g=64)
-    assert nrows == 2 * ngrid
-    body_vert = None
-    if vertical:
-        body_vert = jnp.asarray(np.repeat([500.0, 850.0], ngrid), dtype=bp.dtype)
-        rng = np.random.default_rng(1)
-        obs = obs._replace(
-            verts=jnp.asarray(rng.uniform(400, 900, obs.values.shape[0]),
-                              dtype=bp.dtype),
-            vert_radii=jnp.asarray(
-                np.where(np.arange(obs.values.shape[0]) % 2 == 0, np.inf, 300.0),
-                dtype=bp.dtype),
-        )
-    tail = core.tail_scan(tm, tp, obs, localize=True)
-    flat = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, body_vert=body_vert,
-        localize=True, block_size=3, tile=48, interpret=True,
-        vertical=vertical,
-    )
-    grid = ensrf_blocked_body_pallas_fused_grid(
-        bm, bp, blat, blon, tail, obs, body_vert=body_vert,
-        localize=True, block_size=3, tile=48, interpret=True,
-        vertical=vertical, ngrid=ngrid,
-    )
-    np.testing.assert_allclose(np.asarray(grid[0]), np.asarray(flat[0]),
-                               rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(grid[1]), np.asarray(flat[1]),
-                               rtol=2e-5, atol=2e-4)
+@pytest.mark.parametrize("geometry", ["chordal", "haversine"])
+def test_body_kernel_varloc(geometry):
+    """Cross-variable localization: the kernel gathers the factor per
+    (row, ob) from the small table, as the XLA body applies it."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=11, nmems=10, seed=12,
+                                             dtype=jnp.float64, ntimes=1,
+                                             nvars=2)
+    nrows, nobs = bm.shape[0], obs.values.shape[0]
+    varloc = jnp.asarray([[1.0, 0.3], [0.0, 1.0], [1.0, 1.0]])
+    row_var = jnp.repeat(jnp.arange(2, dtype=jnp.int32), nrows // 2)
+    ob_var = jnp.asarray(np.arange(nobs) % 3, jnp.int32)
+    fg = geometry == "chordal"
+    vkw = dict(varloc=varloc, row_var=row_var, ob_var=ob_var)
+    tail = core.tail_scan(tm, tp, obs, localize=True, fast_geometry=fg,
+                          varloc=varloc, ob_var=ob_var)
+    ref = core.ensrf_blocked_body(bm, bp, blat, blon, tail, obs,
+                                  localize=True, block_size=4,
+                                  fast_geometry=fg, **vkw)
+    got = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                      geometry=geometry, interpret=True, **vkw)
+    _close(got, ref, 1e-9)
 
 
-def test_ensrf_class_routes_gridded_fast_geometry_to_v4_grid():
-    """EnSRF with use_pallas + fast_geometry on a vt>1 state must agree
-    with the XLA path (exercises the v4-grid routing end to end)."""
-    from conftest import make_demo_obs, make_demo_state
+@pytest.mark.parametrize("fast_geometry", [True, False])
+def test_ensrf_class_routes_gridded_fast_geometry_to_v4_grid(fast_geometry):
+    """EnSRF with use_pallas on a vt>1 state (kernels in the interpreter)
+    must agree with the XLA path end to end."""
     from efa_xray_tpu.assimilation.ensrf import EnSRF
     from efa_xray_tpu.config import FilterConfig
 
     state = make_demo_state(ntimes=3, ny=7, nx=9, nmems=14, seed=15)
-    obs = make_demo_obs(state, nobs=7, seed=16, radius=900.0)
-    base = FilterConfig(localization="GC", dtype="float32", use_pallas=False,
-                        fast_geometry=True)
-    fused = FilterConfig(localization="GC", dtype="float32", use_pallas=True,
-                         fast_geometry=True, block_size=3, pallas_tile=32)
-    p1, _ = EnSRF(state, list(obs), config=base).update()
-    p2, _ = EnSRF(state, list(obs), config=fused).update()
+    obs = make_demo_obs(state, nobs=30, seed=16, radius=900.0)
+    kw = dict(localization="GC", dtype="float32",
+              fast_geometry=fast_geometry, tail_panel=16)
+    p1, _ = EnSRF(state, list(obs), config=FilterConfig(**kw)).update()
+    filt = EnSRF(state, list(obs), config=FilterConfig(
+        use_pallas=True, tail_pallas=True, **kw))
+    filt.interpret = True
+    assert filt._kernels().body and filt._kernels().tail
+    p2, _ = filt.update()
     np.testing.assert_allclose(np.asarray(p2.data), np.asarray(p1.data),
                                atol=2e-4)
 
 
 # ---------------------------------------------------------------------------
-# Localization culling + spatial row sorting (v4 fused kernel)
+# Localization culling + spatial row sorting
 # ---------------------------------------------------------------------------
 
 
@@ -349,26 +306,19 @@ def _scatter_setup(nstate=600, nmems=10, nobs=21, radius=400.0, seed=7,
                                                (True, True)])
 def test_fused_cull_and_sort_match_xla(cull, spatial_sort):
     """Culling skips only provably-zero work and row sorting is an exact
-    permutation: both must reproduce the XLA blocked oracle bit-for-bit as
-    well as the unculled fused kernel does."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import (
-        ensrf_blocked_body_pallas_fused,
-    )
-
+    permutation: both reproduce the unculled kernel bit-for-bit and the
+    XLA blocked oracle to f32 reassociation."""
     bm, bp, tm, tp, blat, blon, obs = _scatter_setup()
     tail = core.tail_scan(tm, tp, obs, localize=True, fast_geometry=True)
     bm_x, bp_x, *_ = core.ensrf_blocked(
         bm, bp, tm, tp, blat, blon, obs, localize=True, block_size=8,
         fast_geometry=True,
     )
-    bm_base, bp_base = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, localize=True, block_size=8,
-        tile=64, interpret=True, cull=False, spatial_sort=False,
-    )
-    bm_p, bp_p = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, localize=True, block_size=8,
-        tile=64, interpret=True, cull=cull, spatial_sort=spatial_sort,
-    )
+    kw = dict(localize=True, block_size=16, tile=32, interpret=True)
+    bm_base, bp_base = body_update(bm, bp, blat, blon, tail, obs,
+                                   cull=False, spatial_sort=False, **kw)
+    bm_p, bp_p = body_update(bm, bp, blat, blon, tail, obs, cull=cull,
+                             spatial_sort=spatial_sort, **kw)
     # Identical arithmetic (skips are multiplications by exact zeros; the
     # sort is a row permutation of row-local work): bitwise equality.
     np.testing.assert_array_equal(np.asarray(bm_p), np.asarray(bm_base))
@@ -380,70 +330,57 @@ def test_fused_cull_and_sort_match_xla(cull, spatial_sort):
 
 
 def test_cull_mask_is_conservative():
-    """Every (tile, block/panel) pair the mask kills must have identically
-    zero Gaspari-Cohn weights for every (assimilated) ob in it."""
+    """Every (tile, block) pair the mask kills must have identically zero
+    Gaspari-Cohn weights for every (assimilated) ob in it."""
     from efa_xray_tpu.observation.localization import (
         gaspari_cohn_np,
         latlon_to_unit,
     )
-    from efa_xray_tpu.ops.ensrf_pallas_fused import PANEL, cull_masks
+    from efa_xray_tpu.ops.ensrf_triton import cull_masks
 
     bm, bp, tm, tp, blat, blon, obs = _scatter_setup(nstate=500, nobs=40,
                                                      radius=900.0, seed=3)
-    tile, bsz = 48, 16
-    nblocks = -(-len(obs.values) // bsz)
+    from efa_xray_tpu.observation.localization import spatial_sort_order
+
+    # Compact tiles and blocks, so that some pairs die.
+    ro = np.asarray(spatial_sort_order(blat, blon))
+    blat, blon = blat[ro], blon[ro]
+    oo = np.asarray(spatial_sort_order(obs.lats, obs.lons))
+    obs = jax.tree.map(lambda a: a[oo], obs)
+    tile, bsz = 48, 4
     xyz = latlon_to_unit(blat, blon)
     oxyz = latlon_to_unit(obs.lats, obs.lons)
-    mask, pmask = cull_masks(xyz, oxyz, obs.radii, obs.assim,
-                             tile, nblocks, bsz)
-    mask, pmask = np.asarray(mask), np.asarray(pmask)
+    mask = np.asarray(cull_masks(xyz, oxyz, obs.radii, obs.assim, tile, bsz))
 
-    # Brute-force weights on the exact chordal geometry (f64).
     x = np.asarray(xyz, np.float64)
     o = np.asarray(oxyz, np.float64)
-    ang = np.arccos(np.clip(o @ x.T, -1, 1))  # [nobs, nstate]
-    dist = 6371.0 * ang
-    w = gaspari_cohn_np(dist, 1.0) * 0.0  # init
+    dist = 6371.0 * np.arccos(np.clip(o @ x.T, -1, 1))  # [nobs, nstate]
     radii = np.asarray(obs.radii, np.float64)
-    for j in range(len(radii)):
-        w[j] = (np.ones_like(dist[j]) if np.isinf(radii[j])
-                else gaspari_cohn_np(dist[j], radii[j]))
+    w = np.stack([np.ones_like(dist[j]) if np.isinf(radii[j])
+                  else gaspari_cohn_np(dist[j], radii[j])
+                  for j in range(len(radii))])
     w *= np.asarray(obs.assim, np.float64)[:, None]
 
     nstate = x.shape[0]
-    gtiles = -(-nstate // tile)
-    npanels = -(-bsz // PANEL)
-    for t in range(gtiles):
+    for t in range(mask.shape[0]):
         rows = slice(t * tile, min((t + 1) * tile, nstate))
-        for b in range(nblocks):
-            obs_sl = slice(b * bsz, min((b + 1) * bsz, len(radii)))
-            any_w = np.any(w[obs_sl, rows] != 0.0)
+        for b in range(mask.shape[1]):
             if not mask[t, b]:
-                assert not any_w, (t, b)
-            for q in range(npanels):
-                p0 = b * bsz + q * PANEL
-                psl = slice(p0, min(p0 + PANEL, min((b + 1) * bsz,
-                                                    len(radii))))
-                if psl.start >= psl.stop:
-                    continue
-                if not pmask[t, b, q]:
-                    assert not np.any(w[psl, rows] != 0.0), (t, b, q)
-    # And the mask actually kills something on this workload (sanity that
-    # the test exercises the cull path at all).
-    assert (pmask == 0).any()
+                assert not np.any(w[b * bsz:(b + 1) * bsz, rows] != 0.0), (t, b)
+    assert (~mask).any()  # the test exercises the cull path at all
 
 
 def test_sort_spatially_improves_mask_sparsity():
-    """Morton-sorting rows AND obs must strictly increase the number of
-    culled panels on a scattered global workload."""
+    """Hilbert-sorting rows AND obs must strictly increase the number of
+    culled (tile, block) pairs on a scattered global workload."""
     from efa_xray_tpu.observation.localization import (
         latlon_to_unit,
         spatial_sort_order,
     )
-    from efa_xray_tpu.ops.ensrf_pallas_fused import cull_masks
+    from efa_xray_tpu.ops.ensrf_triton import cull_masks
 
     rng = np.random.default_rng(11)
-    n, nobs, tile, bsz = 4096, 256, 256, 32
+    n, nobs, tile, bsz = 4096, 256, 256, 16
     lat = jnp.asarray(rng.uniform(-88, 88, n), jnp.float32)
     lon = jnp.asarray(rng.uniform(0, 360, n), jnp.float32)
     olat = jnp.asarray(rng.uniform(-88, 88, nobs), jnp.float32)
@@ -452,19 +389,26 @@ def test_sort_spatially_improves_mask_sparsity():
     ok = jnp.ones(nobs, bool)
     xyz = latlon_to_unit(lat, lon)
     oxyz = latlon_to_unit(olat, olon)
-    nblocks = nobs // bsz
-    _, p_unsorted = cull_masks(xyz, oxyz, radii, ok, tile, nblocks, bsz)
+    unsorted = cull_masks(xyz, oxyz, radii, ok, tile, bsz)
     ro = spatial_sort_order(lat, lon)
     oo = spatial_sort_order(olat, olon)
-    _, p_sorted = cull_masks(xyz[ro], oxyz[oo], radii[oo], ok, tile,
-                             nblocks, bsz)
-    frac_unsorted = float(jnp.mean(p_unsorted.astype(jnp.float32)))
-    frac_sorted = float(jnp.mean(p_sorted.astype(jnp.float32)))
+    srt = cull_masks(xyz[ro], oxyz[oo], radii[oo], ok, tile, bsz)
+    frac_unsorted = float(jnp.mean(unsorted.astype(jnp.float32)))
+    frac_sorted = float(jnp.mean(srt.astype(jnp.float32)))
     assert frac_sorted < frac_unsorted
-    # Compact caps kill a solid share even at this toy scale (16 tiles x 32
-    # panels); at headline scale (128 tiles x 256 panels, r=2000 km) the
-    # measured alive fraction is far lower.
     assert frac_sorted < 0.75
+
+
+def test_pack_bits_roundtrip():
+    """Cull bits: bit i of word w is block 32 w + i, padding bits zero."""
+    from efa_xray_tpu.ops.ensrf_triton import pack_bits
+
+    alive = np.random.default_rng(0).random((3, 70)) < 0.5
+    words = np.asarray(pack_bits(jnp.asarray(alive))).astype(np.int64)
+    assert words.shape == (3, 3)
+    back = (words[:, :, None] >> np.arange(32)) & 1
+    np.testing.assert_array_equal(back.reshape(3, 96)[:, :70], alive)
+    assert not back.reshape(3, 96)[:, 70:].any()
 
 
 def test_sort_spatially_batch_roundtrip():
@@ -489,35 +433,25 @@ def test_sort_spatially_batch_roundtrip():
 
 
 # ---------------------------------------------------------------------------
-# Pallas-accelerated tail solve (tail_scan_blocked(pallas_apply=True))
+# Kernel tail solve (tail_scan_blocked(kernels=True))
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("localize", [True, False])
 def test_tail_pallas_apply_matches_xla_tail(localize):
-    """Routing the panel-apply through the fused v4 kernel must reproduce
-    the XLA hierarchical tail (and hence the exact serial tail) up to the
-    chordal arccos-polynomial difference between the kernel and
-    chordal_gc_weights (~1e-7 on weights)."""
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=40, nmems=10)
+    """Routing the panel solve and apply through the kernels reproduces
+    the XLA hierarchical tail (and hence the exact serial tail)."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=40, nmems=10,
+                                             dtype=jnp.float64)
     ref = core.tail_scan_blocked(tm, tp, obs, localize=localize,
                                  fast_geometry=True, panel=10)
     got = core.tail_scan_blocked(tm, tp, obs, localize=localize,
                                  fast_geometry=True, panel=10,
-                                 pallas_apply=True, interpret=True,
-                                 pallas_tile=64)
-    # f32 matmul reassociation between the kernel and XLA: ~1e-6
-    # relative on O(280) fields
-    np.testing.assert_allclose(np.asarray(got.tail_mean),
-                               np.asarray(ref.tail_mean), atol=5e-4, rtol=0)
-    np.testing.assert_allclose(np.asarray(got.tail_perts),
-                               np.asarray(ref.tail_perts), atol=5e-4, rtol=0)
-    # per-ob coefficient sequences feed the body sweep: must match too
-    # (downstream of the f32 tail-pert differences, hence the tolerance)
-    np.testing.assert_allclose(np.asarray(got.gain_coef),
-                               np.asarray(ref.gain_coef), atol=1e-4, rtol=0)
-    np.testing.assert_allclose(np.asarray(got.sqrt_coef),
-                               np.asarray(ref.sqrt_coef), atol=1e-4, rtol=0)
+                                 kernels=True, interpret=True)
+    for name in ("tail_mean", "tail_perts", "gain_coef", "sqrt_coef", "ye"):
+        np.testing.assert_allclose(np.asarray(getattr(got, name)),
+                                   np.asarray(getattr(ref, name)),
+                                   atol=1e-9, rtol=1e-9, err_msg=name)
 
 
 def test_tail_pallas_apply_with_skipped_obs():
@@ -528,8 +462,7 @@ def test_tail_pallas_apply_with_skipped_obs():
                                  fast_geometry=True, panel=8)
     got = core.tail_scan_blocked(tm, tp, obs, localize=True,
                                  fast_geometry=True, panel=8,
-                                 pallas_apply=True, interpret=True,
-                                 pallas_tile=64)
+                                 kernels=True, interpret=True)
     np.testing.assert_allclose(np.asarray(got.tail_perts),
                                np.asarray(ref.tail_perts), atol=5e-4, rtol=0)
     np.testing.assert_array_equal(np.asarray(got.diags.assimilated),
@@ -537,11 +470,14 @@ def test_tail_pallas_apply_with_skipped_obs():
 
 
 def test_tail_pallas_guards():
+    """The tail kernels have no hybrid static column: asking for both
+    raises instead of silently dropping the column."""
     bm, bp, tm, tp, blat, blon, obs = _setup(nobs=20, nmems=8)
     with pytest.raises(ValueError):
-        core.tail_scan_blocked(tm, tp, obs, localize=True,
-                               fast_geometry=False, panel=8,
-                               pallas_apply=True, interpret=True)
+        core.tail_scan_blocked(tm, tp, obs, localize=True, panel=8,
+                               hybrid_alpha=0.5, tail_sigma=jnp.ones(20),
+                               static_length=500.0,
+                               kernels=True, interpret=True)
 
 
 @pytest.mark.parametrize("localize", [True, False])
@@ -552,7 +488,7 @@ def test_tail_panel_solve_pallas_matches_tail_scan(localize, unbiased):
     four diagnostics, including inf radii and skipped obs."""
     from efa_xray_tpu.observation.localization import (
         chordal_gc_weights, latlon_to_unit)
-    from efa_xray_tpu.ops.tail_solve_pallas import tail_panel_solve_pallas
+    from efa_xray_tpu.ops.tail_solve_triton import tail_panel_solve
 
     rng = np.random.default_rng(11)
     P, M = 24, 10
@@ -576,11 +512,10 @@ def test_tail_panel_solve_pallas_matches_tail_scan(localize, unbiased):
         wmat = chordal_gc_weights(xyz[None, :, :], xyz[:, None, :],
                                   obs.radii[:, None])
     else:
-        wmat = None
-    got = tail_panel_solve_pallas(
+        wmat = jnp.ones((P, P))
+    got = tail_panel_solve(
         jnp.asarray(tm0), jnp.asarray(tp0), obs.values, obs.errors,
-        obs.assim, wmat, localize=localize, unbiased=unbiased,
-        interpret=True)
+        obs.assim, wmat, unbiased=unbiased, interpret=True)
     refs = (sol.tail_mean, sol.tail_perts, sol.ye, sol.gain_coef,
             sol.sqrt_coef, sol.diags.prior_mean, sol.diags.prior_var,
             sol.diags.post_mean, sol.diags.post_var)
@@ -591,15 +526,14 @@ def test_tail_panel_solve_pallas_matches_tail_scan(localize, unbiased):
 
 
 def test_tail_pallas_single_panel_pads_and_slices():
-    """nobs <= panel routes the whole batch through ONE padded in-kernel
-    panel solve; outputs must slice back to nobs and match the XLA tail
-    (padded rows are exact no-ops via assim=False)."""
+    """nobs <= panel: the whole batch is ONE kernel panel solve; outputs
+    keep nobs rows and match the XLA tail."""
     bm, bp, tm, tp, blat, blon, obs = _setup(nobs=13, nmems=10, seed=9)
     ref = core.tail_scan_blocked(tm, tp, obs, localize=True,
                                  fast_geometry=True, panel=32)
     got = core.tail_scan_blocked(tm, tp, obs, localize=True,
                                  fast_geometry=True, panel=32,
-                                 pallas_apply=True, interpret=True)
+                                 kernels=True, interpret=True)
     assert got.ye.shape == ref.ye.shape == (13, 10)
     np.testing.assert_allclose(np.asarray(got.tail_mean),
                                np.asarray(ref.tail_mean), atol=5e-4)
@@ -609,25 +543,9 @@ def test_tail_pallas_single_panel_pads_and_slices():
                                np.asarray(ref.gain_coef), atol=5e-4)
 
 
-def test_tail_pallas_oversize_panel_falls_back_to_xla_solve():
-    """panel > 1024 exceeds the in-kernel solver's VMEM bound: the Pallas
-    tail must keep working (XLA panel solve + Pallas apply), not raise —
-    a tail_panel=2048 config was valid before the in-kernel solve."""
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=20, nmems=10, seed=2)
-    ref = core.tail_scan_blocked(tm, tp, obs, localize=True,
-                                 fast_geometry=True, panel=2048)
-    got = core.tail_scan_blocked(tm, tp, obs, localize=True,
-                                 fast_geometry=True, panel=2048,
-                                 pallas_apply=True, interpret=True)
-    np.testing.assert_allclose(np.asarray(got.tail_mean),
-                               np.asarray(ref.tail_mean), atol=5e-4)
-    np.testing.assert_allclose(np.asarray(got.tail_perts),
-                               np.asarray(ref.tail_perts), atol=5e-4)
-
-
 def test_tail_pallas_blocked_diags_match_xla():
-    """tail_scan_blocked with pallas_apply=True (which now also runs the
-    panel SOLVE in-kernel) reproduces the XLA path's diagnostics."""
+    """tail_scan_blocked(kernels=True) reproduces the XLA path's
+    diagnostics."""
     bm, bp, tm, tp, blat, blon, obs = _setup(nobs=30, nmems=10)
     obs = obs._replace(assim=jnp.asarray(
         np.random.default_rng(6).random(30) > 0.3))
@@ -635,8 +553,7 @@ def test_tail_pallas_blocked_diags_match_xla():
                                  fast_geometry=True, panel=8)
     got = core.tail_scan_blocked(tm, tp, obs, localize=True,
                                  fast_geometry=True, panel=8,
-                                 pallas_apply=True, interpret=True,
-                                 pallas_tile=64)
+                                 kernels=True, interpret=True)
     for name in ("prior_mean", "prior_var", "post_mean", "post_var"):
         np.testing.assert_allclose(
             np.asarray(getattr(got.diags, name)),
@@ -644,123 +561,70 @@ def test_tail_pallas_blocked_diags_match_xla():
             err_msg=name)
 
 
-def test_auto_tile_clamps():
-    """Auto Pallas tile selection is workload-aware (r3 review): grid-mode
-    tiles are capped so the kernels' VMEM working set fits their 100 MB
-    limit, and the flat tile rises for huge states so the Mosaic grid
-    dimension stays under its ~2048 bound."""
-    from conftest import make_demo_obs, make_demo_state
-    from efa_xray_tpu.assimilation.ensrf import EnSRF
-    from efa_xray_tpu.config import FilterConfig
-
-    state = make_demo_state(nmems=10, seed=0)
-    obs = make_demo_obs(state, nobs=2, seed=1, radius=1500.0)
-    filt = EnSRF(state, list(obs), config=FilterConfig(localization="GC"),
-                 verbose=False)
-
-    # Grid-mode cap: [tile, nmems] blocks + [block_size, tile] weight and
-    # scratch panels (double-buffered) must fit well inside 100 MB.
-    b = filt.config.block_size
-    for m in (10, 80, 256):
-        t = filt._tile(grid=True, nmems=m)
-        per_row = 8 * (2 + 2 * m + b) + 8 * b
-        assert t % 8 == 0
-        assert t * per_row <= 64 * 1024 * 1024
-        assert t < (1 << 22)
-    assert filt._tile(grid=True, nmems=10) > filt._tile(grid=True, nmems=256)
-
-    # Flat kernel: default 8192 up to ~16.7M rows, then raised so
-    # ceil(nrows / tile) stays under the Mosaic grid-dimension bound
-    # (tile 4096 at 1e7 rows measured failing with gtiles = 2442).
-    assert filt._tile(nrows=10_000_000) == 8192
-    big = 30_000_000
-    t = filt._tile(nrows=big)
-    assert t % 8 == 0 and t >= 8192
-    assert -(-big // t) <= 2040
-
-    # An explicit pallas_tile always wins.
-    filt2 = EnSRF(state, list(obs), verbose=False,
-                  config=FilterConfig(localization="GC", pallas_tile=4096))
-    assert filt2._tile(grid=True, nmems=80) == 4096
-    assert filt2._tile(nrows=big) == 4096
+@pytest.mark.parametrize("variant", ["haversine", "vertical", "varloc"])
+def test_tail_kernels_cover_geometry_vertical_varloc(variant):
+    """The kernel tail takes exact geometry, vertical localization and
+    cross-variable factors (all enter through the XLA-built ob-ob weight
+    matrix and the body kernel's per-row factors)."""
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=29, nmems=9, seed=21,
+                                             dtype=jnp.float64)
+    kw = dict(localize=True, fast_geometry=variant != "haversine", panel=8)
+    if variant == "vertical":
+        _, obs = _vertical_obs(obs, 2, tm.dtype, 4)
+        kw["vertical"] = True
+    if variant == "varloc":
+        kw["varloc"] = jnp.asarray([[1.0, 0.2], [0.5, 1.0], [1.0, 1.0]])
+        kw["ob_var"] = jnp.asarray(np.arange(29) % 3, jnp.int32)
+    ref = core.tail_scan(tm, tp, obs, **{k: v for k, v in kw.items()
+                                         if k != "panel"})
+    got = core.tail_scan_blocked(tm, tp, obs, kernels=True, interpret=True,
+                                 **kw)
+    for name in ("tail_mean", "tail_perts", "gain_coef", "sqrt_coef"):
+        np.testing.assert_allclose(np.asarray(getattr(got, name)),
+                                   np.asarray(getattr(ref, name)),
+                                   atol=1e-9, rtol=1e-9, err_msg=name)
 
 
-def test_fused_mxu_bf16_close_to_f32():
-    """Opt-in bf16 MXU inputs perturb the analysis only at the bf16
-    input-rounding level (~0.4% of increments): the posterior must stay
-    far closer to the f32 kernel's than the prior is to either."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import (
-        ensrf_blocked_body_pallas_fused,
-    )
-
-    bm, bp, tm, tp, blat, blon, obs = _scatter_setup()
-    tail = core.tail_scan(tm, tp, obs, localize=True, fast_geometry=True)
-    kw = dict(localize=True, block_size=8, tile=64, interpret=True)
-    bm_f, bp_f = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, **kw)
-    bm_b, bp_b = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, mxu_bf16=True, **kw)
-    # increments actually happened
-    inc = np.abs(np.asarray(bm_f) - np.asarray(bm)).max()
-    assert inc > 1e-3
-    # bf16 drift is a small fraction of the increment scale
-    dm = np.abs(np.asarray(bm_b) - np.asarray(bm_f)).max()
-    dp = np.abs(np.asarray(bp_b) - np.asarray(bp_f)).max()
-    assert dm < 0.05 * max(inc, 1.0), (dm, inc)
-    assert dp < 0.1, dp
-    # and the mean path (f32 throughout) tracks tightly in relative terms
-    np.testing.assert_allclose(np.asarray(bm_b), np.asarray(bm_f),
-                               rtol=0, atol=0.05)
+# ---------------------------------------------------------------------------
+# Precision and the compiled kernels
+# ---------------------------------------------------------------------------
 
 
-def test_fused_grid_mxu_bf16_close_to_f32():
-    """v4-grid bf16 MXU inputs: same drift contract as the flat kernel."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import (
-        ensrf_blocked_body_pallas_fused_grid,
-    )
+@pytest.mark.parametrize("setting,expect", [
+    (None, jax.lax.Precision.DEFAULT),
+    ("default", jax.lax.Precision.DEFAULT),
+    ("tensorfloat32", jax.lax.Precision.DEFAULT),
+    ("highest", jax.lax.Precision.HIGHEST),
+    ("float32", jax.lax.Precision.HIGHEST),
+])
+def test_kernel_dots_follow_matmul_precision(setting, expect):
+    """The kernels' dots take the ambient jax.default_matmul_precision,
+    which FilterConfig.matmul_precision sets around every update."""
+    from efa_xray_tpu.ops.ensrf_triton import dot_precision
 
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9, nmems=12, seed=14)
-    ngrid = 64
-    tail = core.tail_scan(tm, tp, obs, localize=True)
-    kw = dict(localize=True, block_size=3, tile=48, interpret=True,
-              ngrid=ngrid)
-    bm_f, bp_f = ensrf_blocked_body_pallas_fused_grid(
-        bm, bp, blat, blon, tail, obs, **kw)
-    bm_b, bp_b = ensrf_blocked_body_pallas_fused_grid(
-        bm, bp, blat, blon, tail, obs, mxu_bf16=True, **kw)
-    inc = np.abs(np.asarray(bm_f) - np.asarray(bm)).max()
-    assert inc > 1e-3
-    dm = np.abs(np.asarray(bm_b) - np.asarray(bm_f)).max()
-    dp = np.abs(np.asarray(bp_b) - np.asarray(bp_f)).max()
-    assert dm < 0.05 * max(inc, 1.0), (dm, inc)
-    assert dp < 0.1, dp
+    if setting is None:
+        assert dot_precision() == expect
+    else:
+        with jax.default_matmul_precision(setting):
+            assert dot_precision() == expect
 
 
-def test_fused_v4_series_angle_matches_arccos():
-    """The sin-series angle form (max_radius_km certified <= 5000 km)
-    must match the full-range arccos form to f32 weight noise."""
-    from efa_xray_tpu.ops.ensrf_pallas_fused import (
-        ensrf_blocked_body_pallas_fused,
-    )
-
-    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=9)
-    tail = core.tail_scan(tm, tp, obs, localize=True)
-    ref = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, localize=True, block_size=4,
-        tile=64, interpret=True,
-    )
-    got = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, localize=True, block_size=4,
-        tile=64, interpret=True,
-        max_radius_km=float(np.max(np.asarray(obs.radii))),
-    )
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                               rtol=2e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
-                               rtol=2e-5, atol=1e-4)
-    # a radius beyond the series validity keeps the arccos form (bitwise)
-    far = ensrf_blocked_body_pallas_fused(
-        bm, bp, blat, blon, tail, obs, localize=True, block_size=4,
-        tile=64, interpret=True, max_radius_km=9000.0,
-    )
-    np.testing.assert_array_equal(np.asarray(far[0]), np.asarray(ref[0]))
+@pytest.mark.gpu
+def test_compiled_kernels_match_interpreter():
+    """On a CUDA GPU: the compiled body and tail kernels equal their
+    interpreted runs (true-f32 dots on both sides)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a CUDA GPU")
+    bm, bp, tm, tp, blat, blon, obs = _setup(nobs=70, nmems=20)
+    with jax.default_matmul_precision("highest"):
+        tail = core.tail_scan_blocked(tm, tp, obs, localize=True, panel=32,
+                                      kernels=True)
+        tail_i = core.tail_scan_blocked(tm, tp, obs, localize=True,
+                                        panel=32, kernels=True,
+                                        interpret=True)
+        got = body_update(bm, bp, blat, blon, tail, obs, localize=True)
+        ref = body_update(bm, bp, blat, blon, tail, obs, localize=True,
+                          interpret=True)
+    np.testing.assert_allclose(np.asarray(tail.tail_perts),
+                               np.asarray(tail_i.tail_perts), atol=1e-4)
+    _close(got, ref, 1e-4)

@@ -1,8 +1,8 @@
 """matmul_precision config: validation, context plumbing, CPU no-op.
 
-What the knob means is measured on hardware (benchmarks/precision_probe.py:
-TPU-default f32 dots truncate inputs to bf16 single-pass; "highest"
-restores the multi-pass true-f32 product).  On CPU, f32/f64 dots are exact
+What the knob means depends on the hardware (on an H100 the default runs
+f32 dots as TF32; "highest" runs true f32 products).  On CPU, f32/f64
+dots are exact
 regardless, so here we verify the plumbing: the value is validated, the
 solver update actually runs under the requested jax.default_matmul_precision
 context, and results on CPU are unchanged by it.
@@ -45,8 +45,9 @@ def test_precision_ctx_sets_jax_config():
 
 @pytest.mark.parametrize("value", ["highest", "bfloat16"])
 def test_update_runs_under_precision_and_matches_on_cpu(value):
-    """CPU dots ignore the MXU precision ladder: any setting must leave
-    the posterior unchanged (the knob only means something on TPU)."""
+    """CPU dots ignore the precision ladder: any setting must leave the
+    posterior unchanged (the knob only means something on an
+    accelerator)."""
     state = make_demo_state(ntimes=2, ny=5, nx=6, nmems=10, seed=3)
     obs = make_demo_obs(state, nobs=5, seed=4, radius=1200.0)
     base = FilterConfig(localization="GC", dtype="float64")

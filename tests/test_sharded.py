@@ -1,7 +1,7 @@
 """Multi-device sharding: N-device shard_map run must match single-device.
 
 Runs on 8 virtual CPU devices (conftest sets
-``xla_force_host_platform_device_count=8``), standing in for a TPU mesh.
+``xla_force_host_platform_device_count=8``), standing in for a GPU mesh.
 """
 
 import numpy as np
@@ -16,6 +16,7 @@ from efa_xray_tpu.assimilation.ensrf import EnSRF
 from efa_xray_tpu.config import FilterConfig
 from efa_xray_tpu.observation.observation import ObservationBatch
 from efa_xray_tpu.parallel import make_mesh
+from efa_xray_tpu.ops.select import Kernels
 from efa_xray_tpu.parallel.sharded import ensrf_update_sharded
 
 
@@ -98,7 +99,8 @@ def test_state_shard_placement():
 
 @requires_multi
 def test_sharded_pallas_matches_single_device():
-    """Pallas kernel under shard_map (interpret mode on the CPU mesh)."""
+    """Body and tail kernels under shard_map (interpreter on the CPU
+    mesh), exact geometry."""
     from efa_xray_tpu.parallel.sharded import ensrf_update_sharded
     from efa_xray_tpu.assimilation import ensrf_core as core
     import jax.numpy as jnp
@@ -118,7 +120,7 @@ def test_sharded_pallas_matches_single_device():
         jnp.asarray(row_lat, dtype=jnp.float32),
         jnp.asarray(row_lon, dtype=jnp.float32),
         oarr, mesh=mesh, localize=True, method="blocked", block_size=8,
-        use_pallas=True, interpret=True,
+        kernels=Kernels(body=True, tail=True, interpret=True),
     )
     post = np.asarray(bm2)[:, None] + np.asarray(bp2)
     want = np.asarray(post_single.to_vect())
@@ -127,8 +129,9 @@ def test_sharded_pallas_matches_single_device():
 
 @requires_multi
 def test_sharded_fused_v4_matches_single_device():
-    """The fully-fused v4 kernel under shard_map (with donation) must match
-    the single-device update — the headline composition (v4 x mesh)."""
+    """The body kernel under shard_map (with donation, chordal geometry)
+    must match the single-device update — the headline composition
+    (kernel x mesh)."""
     state, obs, batch = _problem(seed=23)
     cfg = FilterConfig(localization="GC", dtype="float32", fast_geometry=True)
     single = EnSRF(state, list(obs), config=cfg)
@@ -144,12 +147,41 @@ def test_sharded_fused_v4_matches_single_device():
         jnp.asarray(row_lat, dtype=jnp.float32),
         jnp.asarray(row_lon, dtype=jnp.float32),
         oarr, mesh=mesh, localize=True, method="blocked", block_size=8,
-        tile=32, use_pallas=True, interpret=True, fast_geometry=True,
-        donate=True,
+        kernels=Kernels(body=True, tail=False, interpret=True),
+        fast_geometry=True, donate=True,
     )
     post = np.asarray(bm2)[:, None] + np.asarray(bp2)
     want = np.asarray(post_single.to_vect())
     np.testing.assert_allclose(post, want, rtol=2e-4, atol=2e-3)
+
+
+@requires_multi
+def test_sharded_kernels_issue_no_collectives():
+    """The kernel path under the mesh (tail kernels replicated, body
+    kernel per shard) is collective-free as well."""
+    from efa_xray_tpu.parallel.sharded import _ensrf_sharded_jit
+    from efa_xray_tpu.parallel.mesh import STATE_AXIS
+
+    state, obs, batch = _problem(ny=8, nx=8)
+    cfg = FilterConfig(localization="GC", dtype="float32")
+    filt = EnSRF(state, list(obs), config=cfg)
+    bm, bp, tm, tp = filt.format_prior_state()
+    oarr = filt.obs_arrays().with_default_verts()
+    row_lat, row_lon = state.structure.row_latlon()
+    hlo = _ensrf_sharded_jit.lower(
+        bm, bp, tm, tp,
+        jnp.asarray(row_lat, dtype=bm.dtype),
+        jnp.asarray(row_lon, dtype=bm.dtype),
+        jnp.zeros_like(bm), oarr, jnp.zeros_like(bm), jnp.zeros_like(tm),
+        mesh=make_mesh(), localize=True, method="blocked", block_size=8,
+        axis_name=STATE_AXIS, unbiased=False,
+        kernels=Kernels(body=True, tail=True, interpret=True),
+        fast_geometry=False, vertical=False, tail_panel=8, cull=True,
+        spatial_sort=False, hybrid_alpha=1.0, static_length=0.0,
+    ).compile().as_text()
+    for op in ("all-reduce", "all-gather", "collective-permute",
+               "all-to-all", "reduce-scatter"):
+        assert op not in hlo, f"collective {op!r} leaked into the obs loop"
 
 
 @requires_multi
@@ -181,8 +213,9 @@ def test_sharded_obs_loop_issues_no_collectives():
         jnp.zeros_like(bm),  # body_sigma placeholder (hybrid off)
         jnp.zeros_like(tm),  # tail_sigma placeholder
         mesh=mesh, localize=True, method="blocked", block_size=8,
-        tile=64, axis_name=STATE_AXIS, unbiased=False,
-        use_pallas=False, interpret=True, fast_geometry=False,
+        axis_name=STATE_AXIS, unbiased=False,
+        kernels=Kernels(body=False, tail=False, interpret=False),
+        fast_geometry=False,
         vertical=False, tail_panel=8, cull=True, spatial_sort=True,
         hybrid_alpha=1.0, static_length=0.0,
     )
@@ -202,8 +235,9 @@ def test_sharded_obs_loop_issues_no_collectives():
         jnp.ones_like(bm),
         jnp.ones_like(tm),
         mesh=mesh, localize=True, method="blocked", block_size=8,
-        tile=64, axis_name=STATE_AXIS, unbiased=False,
-        use_pallas=False, interpret=True, fast_geometry=False,
+        axis_name=STATE_AXIS, unbiased=False,
+        kernels=Kernels(body=False, tail=False, interpret=False),
+        fast_geometry=False,
         vertical=False, tail_panel=8, cull=True, spatial_sort=True,
         hybrid_alpha=0.5, static_length=1000.0,
     )

@@ -235,19 +235,24 @@ def test_varloc_composes_with_spatial_and_no_localization():
 
 
 def test_grid_kernel_carries_varloc_factor():
-    """The v4-GRID Pallas kernel streams the cross-variable factor
-    through the same per-(group, ob) scalar table as vertical
-    localization, so gridded states keep the fused path: interpret-mode
-    kernel == XLA blocked body with the same factors."""
+    """The body and tail kernels gather the cross-variable factor per
+    (row, ob) from the small table: interpreted kernels == XLA blocked
+    body with the same factors, on gridded and flat states."""
     state, obs = _two_var_setup(nobs=16, seed=13)
     names = state.structure.var_names
     spec = {f"{names[0]}:{names[1]}": 0.0, f"{names[1]}:{names[0]}": 0.4}
     kw = dict(method="blocked", fast_geometry=True)
+
+    def kernel_filter(st, ob, spec_):
+        f = EnSRF(st, list(ob), verbose=False,
+                  config=_cfg(spec_, use_pallas=True, **kw))
+        f.interpret = True
+        return f
+
     xla, _ = EnSRF(state, list(obs), verbose=False,
                    config=_cfg(spec, **kw)).update()
-    filt = EnSRF(state, list(obs), verbose=False,
-                 config=_cfg(spec, use_pallas=True, **kw))
-    assert filt._use_pallas()  # varloc + gridded state keeps the kernel
+    filt = kernel_filter(state, obs, spec)
+    assert filt._kernels().body and filt._kernels().tail
     pal, _ = filt.update()
     np.testing.assert_allclose(np.asarray(pal.data), np.asarray(xla.data),
                                atol=1e-9)
@@ -255,14 +260,16 @@ def test_grid_kernel_carries_varloc_factor():
     for ob in obs:
         ob.obtype = names[0]
     prior = np.asarray(state.data)
-    pal2, _ = EnSRF(state, list(obs), verbose=False,
-                    config=_cfg(spec, use_pallas=True, **kw)).update()
+    pal2, _ = kernel_filter(state, obs, spec).update()
     np.testing.assert_allclose(np.asarray(pal2.data)[1], prior[1],
                                atol=1e-12)
-    # a FLAT (single-var) state with varloc must refuse the flat kernel
+    # a FLAT (single-var) state with varloc takes the same kernel
     flat_state = make_demo_state(nvars=1, ntimes=1, ny=6, nx=8, nmems=12,
                                  seed=14)
-    f2 = EnSRF(flat_state, make_demo_obs(flat_state, nobs=5, seed=15),
-               verbose=False,
-               config=_cfg({"T2m:T2m": 0.5}, use_pallas=True, **kw))
-    assert not f2._use_pallas()
+    flat_obs = make_demo_obs(flat_state, nobs=5, seed=15)
+    f2 = kernel_filter(flat_state, flat_obs, {"T2m:T2m": 0.5})
+    ref, _ = EnSRF(flat_state, list(flat_obs), verbose=False,
+                   config=_cfg({"T2m:T2m": 0.5}, **kw)).update()
+    got, _ = f2.update()
+    np.testing.assert_allclose(np.asarray(got.data), np.asarray(ref.data),
+                               atol=1e-9)

@@ -120,15 +120,17 @@ def test_vertical_pallas_interpret_agrees():
     fast = FilterConfig(localization="GC", dtype="float32", use_pallas=True,
                         block_size=1)
     p1, _ = EnSRF(state, [o for o in obs], config=base).update()
-    p2, _ = EnSRF(state, [o for o in obs], config=fast).update()
+    filt = EnSRF(state, [o for o in obs], config=fast)
+    filt.interpret = True
+    p2, _ = filt.update()
     np.testing.assert_allclose(
         np.asarray(p2.data), np.asarray(p1.data), atol=2e-4
     )
 
 
 def test_vertical_fused_v4_interpret_agrees():
-    """The fully-fused v4 kernel's in-kernel vertical GC factor must match
-    the XLA path on a gridded two-level state (fast_geometry selects v4)."""
+    """The body kernel's in-kernel vertical GC factor must match the XLA
+    path on a gridded two-level state (chordal geometry)."""
     state = make_level_state(seed=11)
     obs = [
         _ob(state, vert=500.0, vrad=250.0),
@@ -139,9 +141,11 @@ def test_vertical_fused_v4_interpret_agrees():
     base = FilterConfig(localization="GC", dtype="float32", use_pallas=False,
                         fast_geometry=True)
     fused = FilterConfig(localization="GC", dtype="float32", use_pallas=True,
-                         fast_geometry=True, block_size=2, pallas_tile=32)
+                         fast_geometry=True, block_size=2)
     p1, _ = EnSRF(state, [o for o in obs], config=base).update()
-    p2, _ = EnSRF(state, [o for o in obs], config=fused).update()
+    filt = EnSRF(state, [o for o in obs], config=fused)
+    filt.interpret = True
+    p2, _ = filt.update()
     np.testing.assert_allclose(
         np.asarray(p2.data), np.asarray(p1.data), atol=2e-4
     )
